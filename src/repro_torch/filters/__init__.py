@@ -1,0 +1,26 @@
+"""Unified graph-filter layer of the port: one ``GraphFilter`` surface,
+several backends (mirrors ``repro/filters``). Importing this package
+registers the ``dense``, ``bsr`` and ``matvec`` backends."""
+
+from repro_torch.filters.api import GraphFilter, bucket_size, shift_matvec_counts
+from repro_torch.filters.registry import (
+    BackendCapabilities,
+    FilterBackend,
+    available_backends,
+    get_backend,
+    register_backend,
+    require_capability,
+)
+from repro_torch.filters import backends as _backends  # noqa: F401  (registers)
+
+__all__ = [
+    "BackendCapabilities",
+    "FilterBackend",
+    "GraphFilter",
+    "available_backends",
+    "bucket_size",
+    "get_backend",
+    "register_backend",
+    "require_capability",
+    "shift_matvec_counts",
+]

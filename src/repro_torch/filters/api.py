@@ -1,0 +1,284 @@
+"""``GraphFilter`` — the entry point for Chebyshev-approximated unions of
+graph Fourier multipliers (paper eqs. 8-11), backend-dispatched.
+
+Mirrors ``repro/filters/api.py`` for single-shift filters::
+
+    filt = GraphFilter.from_multipliers(bank, order=20, graph=g)
+    out  = filt.apply(f, backend="bsr")      # (eta,) + f.shape
+    back = filt.adjoint(out)                 # f.shape
+    gram = filt.gram(f)                      # Phi~* Phi~ f, one 2M filter
+
+Signals are tensors; a non-tensor signal is placed on the bound graph's
+device. Not ported yet: ``from_shifts`` (multi-shift slice),
+``panel_program`` (serve slice) and ``apply_sparse`` (streaming slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import chebyshev
+from repro_torch.core.graph import SensorGraph
+from repro_torch.filters import registry
+
+__all__ = ["GraphFilter", "bucket_size", "shift_matvec_counts"]
+
+Multiplier = Callable[[np.ndarray], np.ndarray]
+
+_BUCKET_FLOOR = 32
+
+
+def bucket_size(n: int, cap: int | None = None, *, floor: int = _BUCKET_FLOOR) -> int:
+    """Round ``n`` up to a power-of-two bucket (optionally capped).
+
+    The bucket set is ``{floor * 2**k} ∪ {cap}``: ``n > cap`` returns
+    ``cap`` exactly, a non-power-of-two ``cap`` is returned verbatim when
+    the ladder crosses it, and ``cap < floor`` returns ``cap``.
+    """
+    if n < 0:
+        raise ValueError(f"bucket_size needs n >= 0, got {n}")
+    if floor < 1:
+        raise ValueError(f"bucket_size needs floor >= 1, got {floor}")
+    if cap is not None and cap < 1:
+        raise ValueError(f"bucket_size needs cap >= 1, got {cap}")
+    b = floor
+    while b < n:
+        b *= 2
+    return b if cap is None else min(b, cap)
+
+
+def shift_matvec_counts(orders: Sequence[int]) -> tuple[int, ...]:
+    """Per-shift matvec counts of one joint apply:
+    ``M_r * prod_{s<r} (M_s + 1)`` (just ``(M,)`` for one shift)."""
+    counts: list[int] = []
+    prefix = 1
+    for m in orders:
+        counts.append(int(m) * prefix)
+        prefix *= int(m) + 1
+    return tuple(counts)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GraphFilter:
+    """A Chebyshev-approximated union of graph Fourier multipliers.
+
+    Compares and hashes by identity. Carries the spectral description
+    only; backend operands (dense Laplacian, Block-ELL tiles) are built
+    lazily per backend and cached on the filter.
+
+    Parameters
+    ----------
+    coeffs : numpy.ndarray
+        (eta, M+1) float64 Chebyshev coefficients, paper eq. (8)
+        convention.
+    lmax : float
+        Spectrum upper bound the polynomials are shifted to.
+    gram_coeffs : numpy.ndarray
+        (2M+1,) coefficients of ``Phi~* Phi~`` (Sec. IV-C).
+    graph : SensorGraph, optional
+        The bound graph; every backend except ``"matvec"`` needs one.
+    multipliers : tuple of callables, optional
+        The multiplier bank the coefficients were expanded from.
+    """
+
+    coeffs: np.ndarray
+    lmax: float
+    gram_coeffs: np.ndarray
+    graph: SensorGraph | None = None
+    multipliers: tuple[Multiplier, ...] | None = None
+    _states: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    # -- constructors ----------------------------------------------------
+
+    @classmethod
+    def from_multipliers(
+        cls,
+        multipliers: Sequence[Multiplier],
+        order: int,
+        *,
+        graph: SensorGraph | None = None,
+        lmax: float | None = None,
+        quad_points: int | None = None,
+    ) -> "GraphFilter":
+        """Expand a multiplier bank to Chebyshev coefficients (eq. 8).
+
+        When ``lmax`` is None the bound graph's Anderson--Morley bound is
+        used.
+        """
+        if lmax is None:
+            if graph is None:
+                raise ValueError("need either graph= or lmax=")
+            lmax = float(graph.lmax_bound())
+        c = chebyshev.cheb_coefficients(multipliers, order, lmax, quad_points)
+        return cls(
+            coeffs=c,
+            lmax=float(lmax),
+            gram_coeffs=chebyshev.gram_coefficients(c),
+            graph=graph,
+            multipliers=tuple(multipliers),
+        )
+
+    @classmethod
+    def from_coefficients(
+        cls,
+        coeffs: np.ndarray,
+        lmax: float,
+        *,
+        graph: SensorGraph | None = None,
+    ) -> "GraphFilter":
+        """Wrap precomputed (eta, M+1) coefficients in a filter."""
+        c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
+        return cls(
+            coeffs=c,
+            lmax=float(lmax),
+            gram_coeffs=chebyshev.gram_coefficients(c),
+            graph=graph,
+        )
+
+    @classmethod
+    def from_shifts(cls, shifts, coeffs, *, lmaxes=None) -> "GraphFilter":
+        """Joint filters over several shifts come with the multi-shift
+        slice of the port."""
+        raise NotImplementedError(
+            "GraphFilter.from_shifts is not ported yet: it comes with the "
+            "multi-shift slice (ROADMAP A7)"
+        )
+
+    def bind(self, graph: SensorGraph) -> "GraphFilter":
+        """Return a copy bound to ``graph`` (backend states reset)."""
+        return dataclasses.replace(self, graph=graph, _states={})
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def eta(self) -> int:
+        """Number of multipliers in the union."""
+        return self.coeffs.shape[0]
+
+    @property
+    def n_shifts(self) -> int:
+        """Number of shift operators (always 1 in this port slice)."""
+        return self.coeffs.ndim - 1
+
+    @property
+    def order(self) -> int:
+        """Chebyshev truncation order M."""
+        return self.coeffs.shape[1] - 1
+
+    @property
+    def orders(self) -> tuple[int, ...]:
+        return (self.order,)
+
+    def operator_norm_bound(self) -> float:
+        """Upper bound on ``||Phi~||^2 = max_x sum_j p_j(x)^2`` over
+        ``[0, lmax]``."""
+        x = np.linspace(0.0, self.lmax, 8192)
+        vals = np.atleast_2d(chebyshev.cheb_eval(self.coeffs, x, self.lmax))
+        return float(np.max(np.sum(vals**2, axis=0)))
+
+    # -- backend dispatch ------------------------------------------------
+
+    def _backend_state(self, be: registry.FilterBackend, opts: dict) -> Any:
+        key = (be.name,) + tuple(
+            sorted((k, v) for k, v in opts.items() if k in be.prepare_opts)
+        )
+        if key not in self._states:
+            self._states[key] = be.prepare(self, **opts)
+        return self._states[key]
+
+    def prepare_backend(self, backend: str = "dense", **opts) -> Any:
+        """Eagerly build (and cache) ``backend``'s prepared state, and
+        return it (for ``bsr``, its ``.bell`` holds the Block-ELL operands)."""
+        return self._backend_state(registry.get_backend(backend), opts)
+
+    def _signal(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x
+        if self.graph is None:
+            raise TypeError("pass a tensor signal to a filter with no bound graph")
+        return torch.as_tensor(np.asarray(x), device=self.graph.device).to(torch.float32)
+
+    def apply(self, f, *, backend: str = "dense", **opts) -> torch.Tensor:
+        """Apply the union ``Phi~ f`` through one shared recurrence.
+
+        Parameters
+        ----------
+        f : torch.Tensor
+            (N,) or (N, F) signal(s).
+        backend : str
+            ``dense``, ``bsr`` or ``matvec``.
+        **opts
+            Backend options (``block_size=``, ``fuse=``, ``f_tile=``,
+            ``krylov_dtype=`` for ``bsr``; ``matvec=`` for ``matvec``).
+
+        Returns
+        -------
+        torch.Tensor
+            (eta,) + f.shape stacked outputs.
+        """
+        be = registry.get_backend(backend)
+        return be.apply(self, self._backend_state(be, opts), self._signal(f), **opts)
+
+    def apply_panel(
+        self, panel, *, backend: str = "dense", width: int | None = None, **opts
+    ) -> torch.Tensor:
+        """Apply to an (N, F) panel zero-padded to a bucketed width (next
+        power of two, floor 8, unless ``width`` is given) and sliced back.
+        Zero columns are exact pass-throughs, so the output equals
+        ``apply(panel)``."""
+        f = self._signal(panel)
+        if f.ndim != 2:
+            raise ValueError(f"apply_panel wants an (N, F) panel, got {tuple(f.shape)}")
+        k = f.shape[1]
+        b = bucket_size(k, floor=8) if width is None else int(width)
+        if b < k:
+            raise ValueError(f"width={b} narrower than the panel's F={k}")
+        if b > k:
+            f = F.pad(f, (0, b - k))
+        out = self.apply(f, backend=backend, **opts)
+        return out[:, :, :k]
+
+    def adjoint(self, a, *, backend: str = "dense", **opts) -> torch.Tensor:
+        """Apply the adjoint ``Phi~* a`` (paper eq. 13); ``a`` is
+        (eta,) + signal.shape, the result signal.shape."""
+        be = registry.get_backend(backend)
+        return be.adjoint(self, self._backend_state(be, opts), self._signal(a), **opts)
+
+    def apply_series(self, f, series: np.ndarray, *, backend: str = "dense", **opts):
+        """Apply one polynomial ``p(L) f`` given by its (M'+1,) series
+        (half-first convention), reusing the prepared backend state."""
+        c = np.asarray(series, dtype=np.float64)
+        if c.ndim != 1:
+            raise ValueError(f"series must have ndim 1, got shape {c.shape}")
+        be = registry.get_backend(backend)
+        state = self._backend_state(be, opts)
+        return be.apply(self, state, self._signal(f), coeffs=c[np.newaxis], **opts)[0]
+
+    def gram(self, f, *, backend: str = "dense", **opts) -> torch.Tensor:
+        """``Phi~* Phi~ f`` as a single degree-2M filter (Sec. IV-C)."""
+        return self.apply_series(f, self.gram_coeffs, backend=backend, **opts)
+
+    def messages_per_apply(
+        self,
+        order: int | None = None,
+        *,
+        orders: Sequence[int] | None = None,
+        backend: str = "dense",
+        **opts,
+    ) -> int:
+        """Scalar words exchanged between workers per ``Phi~ f``. Every
+        backend of this slice runs on one device, so it is 0."""
+        if order is not None and orders is not None:
+            raise ValueError("pass order= or orders=, not both")
+        if orders is None:
+            orders = (int(order),) if order is not None else self.orders
+        elif len(orders) != self.n_shifts:
+            raise ValueError(f"{len(orders)} orders for {self.n_shifts} shifts")
+        be = registry.get_backend(backend)
+        state = self._backend_state(be, opts)
+        return be.messages_per_apply(self, state, shift_matvec_counts(orders))

@@ -1,0 +1,56 @@
+"""Carry state across from the JAX package as plain numpy arrays.
+
+The reference draws its graphs from ``jax.random``; these helpers let the
+same drawn graph, Block-ELL operands and coefficients enter the port, so
+tests can feed identical inputs to both packages. Nothing here imports
+the reference: callers pass numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import SensorGraph
+from repro_torch.device import resolve_device
+from repro_torch.filters import GraphFilter
+from repro_torch.kernels.ref import BlockEll
+
+__all__ = ["sensor_graph_from_numpy", "block_ell_from_numpy", "filter_from_numpy"]
+
+
+def sensor_graph_from_numpy(
+    adjacency, coords=None, device: str | torch.device | None = None
+) -> SensorGraph:
+    """A float32 ``SensorGraph`` on ``device`` from (N, N) and (N, d) arrays."""
+    dev = resolve_device(device)
+    a = np.asarray(adjacency)
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"adjacency must be square, got {a.shape}")
+    c = None
+    if coords is not None:
+        c = torch.as_tensor(np.asarray(coords), device=dev).to(torch.float32)
+        if c.shape[0] != a.shape[0]:
+            raise ValueError(f"coords have {c.shape[0]} rows, adjacency {a.shape[0]}")
+    return SensorGraph(torch.as_tensor(a, device=dev).to(torch.float32), c)
+
+
+def block_ell_from_numpy(
+    blocks, cols, device: str | torch.device | None = None
+) -> BlockEll:
+    """A ``BlockEll`` on ``device``; tiles keep their float dtype (float64
+    becomes float32), columns become int32 and are range-checked."""
+    dev = resolve_device(device)
+    b = np.asarray(blocks)
+    dtype = torch.float32 if b.dtype == np.float64 else None
+    bt = torch.as_tensor(b, device=dev)
+    return BlockEll(
+        bt.to(dtype) if dtype else bt,
+        torch.as_tensor(np.asarray(cols, dtype=np.int32), device=dev),
+    )
+
+
+def filter_from_numpy(coeffs, lmax: float, graph: SensorGraph | None = None) -> GraphFilter:
+    """A ``GraphFilter`` from (eta, M+1) coefficients and ``lmax``, bound
+    to ``graph`` (whose device the filter's backends use)."""
+    return GraphFilter.from_coefficients(np.asarray(coeffs, np.float64), float(lmax), graph=graph)

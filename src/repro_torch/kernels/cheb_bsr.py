@@ -1,0 +1,201 @@
+"""Wrappers of the Block-ELL Chebyshev CUDA kernels.
+
+Mirrors ``repro/kernels/cheb_bsr.py``: ``cheb_step_cuda`` is the
+counterpart of ``cheb_step_pallas`` and ``cheb_union_cuda`` of
+``cheb_union_pallas``; the kernels themselves are in
+``csrc/cheb_bsr.cu``.
+
+Each wrapper takes its path from the device of the tensors it is given:
+CPU tensors go to the plain versions in ``kernels/ref.py``; CUDA tensors
+go to the CUDA kernel, and any failure to build or launch raises. Each
+wrapper counts its CUDA launches in a plain integer attribute
+``launches`` (CPU calls do not count); reset it by assigning 0.
+
+Block columns are not range-checked here, which would cost a device
+synchronisation per launch: ``BlockEll`` checks them when it is built, and
+the kernels never read through a column outside ``[0, n_rows)`` (the rows
+that name one come out NaN).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.autotune import device_sm_count, select_tiling
+
+__all__ = ["cheb_step_cuda", "cheb_union_cuda", "reset_launch_counts"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _dtype_code(t: torch.Tensor, what: str) -> int:
+    try:
+        return _DTYPE_CODE[t.dtype]
+    except KeyError:
+        raise TypeError(f"{what} must be float32 or bfloat16, got {t.dtype}") from None
+
+
+def _check_operands(blocks, cols, signals: dict) -> tuple[int, int, int, int]:
+    if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
+        raise ValueError(f"blocks must be (n_rows, k_max, B, B), got {tuple(blocks.shape)}")
+    n_rows, k_max, b, _ = blocks.shape
+    if tuple(cols.shape) != (n_rows, k_max) or cols.dtype != torch.int32:
+        raise ValueError(
+            f"cols must be int32 (n_rows, k_max) = {(n_rows, k_max)}, got "
+            f"{cols.dtype} {tuple(cols.shape)}"
+        )
+    f = None
+    for name, t in signals.items():
+        if t.dim() != 2 or t.shape[0] != n_rows * b:
+            raise ValueError(f"{name} must be (N, F) with N = {n_rows * b}, got {tuple(t.shape)}")
+        if f is not None and t.shape[1] != f:
+            raise ValueError(f"{name} has F = {t.shape[1]}, expected {f}")
+        f = t.shape[1]
+    devices = {blocks.device, cols.device, *(t.device for t in signals.values())}
+    if len(devices) != 1:
+        raise ValueError(f"operands must share one device, got {sorted(map(str, devices))}")
+    return n_rows, k_max, b, f
+
+
+def _cuda_ready(tensors) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel operands must be contiguous")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError_t {err}")
+
+
+def cheb_step_cuda(
+    blocks: torch.Tensor,
+    cols: torch.Tensor,
+    t1: torch.Tensor,
+    t2: torch.Tensor,
+    *,
+    alpha: float,
+    first: bool = False,
+    f_tile: int | None = None,
+) -> torch.Tensor:
+    """One fused Chebyshev recurrence step on Block-ELL operands.
+
+    Args:
+      blocks: (n_rows, k_max, B, B) tiles, float32 or bfloat16.
+      cols:   (n_rows, k_max) int32 block columns (padding: col 0 + zero tile).
+      t1: (N, F) ``T_{k-1}``, float32 or bfloat16, N = n_rows * B.
+      t2: (N, F) ``T_{k-2}`` in ``t1.dtype`` (ignored when ``first``).
+      alpha: lmax / 2.
+      first: compute ``T_1 = (L - a I) f / a`` instead of the k >= 2 step.
+      f_tile: signal columns per launch slab (default ``min(F, 128)``).
+
+    Returns: (N, F) ``T_k`` in ``t1.dtype``.
+    """
+    n_rows, k_max, b, f = _check_operands(blocks, cols, {"t1": t1, "t2": t2})
+    if t2.dtype != t1.dtype:
+        raise TypeError(f"t2 dtype {t2.dtype} differs from t1 dtype {t1.dtype}")
+    ft = f_tile or min(f, 128)
+    if ft < 1:
+        raise ValueError(f"f_tile must be >= 1, got {ft}")
+    if t1.device.type == "cpu":
+        return ref.cheb_step_ref(blocks, cols, t1, t2, alpha, first=first)
+    if t1.device.type != "cuda":
+        raise ValueError(f"unsupported device {t1.device}")
+    bcode = _dtype_code(blocks, "blocks")
+    tcode = _dtype_code(t1, "t1")
+    _cuda_ready((blocks, cols, t1, t2))
+    ca, cb, cc = ref.step_constants(alpha, first)
+    out = torch.empty_like(t1)
+    lib = load_library()
+    err = lib.cheb_step_launch(
+        blocks.data_ptr(), bcode, cols.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+        out.data_ptr(), tcode, n_rows, k_max, b, f, ft, ca, cb, cc,
+        torch.cuda.current_stream(t1.device).cuda_stream,
+    )
+    _raise_on(err, "cheb_step_cuda launch")
+    cheb_step_cuda.launches += 1
+    return out
+
+
+cheb_step_cuda.launches = 0
+
+
+def cheb_union_cuda(
+    blocks: torch.Tensor,
+    cols: torch.Tensor,
+    f: torch.Tensor,
+    *,
+    coeffs,
+    lmax: float,
+    f_tile: int | None = None,
+    krylov_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Full union apply ``Phi~ f`` (eq. 9 + eq. 11) in one launch.
+
+    Args:
+      blocks: (n_rows, k_max, B, B) float32 tiles.
+      cols: (n_rows, k_max) int32 block columns.
+      f: (N, F) float32 signals.
+      coeffs: (eta, M+1) Chebyshev coefficients, M >= 1.
+      lmax: spectrum bound.
+      f_tile: signal columns per resident pass (default from
+        ``autotune.select_tiling``: as many as the card's resident grid and
+        the L2 budget hold).
+      krylov_dtype: float32 or bfloat16 ping/pong buffers; the math and
+        the accumulators stay float32.
+
+    Returns: (eta, N, F) in ``f.dtype``.
+    """
+    n_rows, k_max, b, fdim = _check_operands(blocks, cols, {"f": f})
+    c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
+    eta, order = c.shape[0], c.shape[1] - 1
+    if order < 1:
+        raise ValueError("need at least order 1 (two coefficients)")
+    if krylov_dtype not in _DTYPE_CODE:
+        raise TypeError(f"krylov_dtype must be float32 or bfloat16, got {krylov_dtype}")
+    if f.device.type == "cpu":
+        return ref.cheb_union_ref(blocks, cols, f, c, lmax, krylov_dtype=krylov_dtype)
+    if f.device.type != "cuda":
+        raise ValueError(f"unsupported device {f.device}")
+    if blocks.dtype != torch.float32 or f.dtype != torch.float32:
+        raise TypeError(f"blocks and f must be float32, got {blocks.dtype} and {f.dtype}")
+    _cuda_ready((blocks, cols, f))
+    n = n_rows * b
+    if f_tile is None:
+        tiling = select_tiling(n, fdim, eta, n_rows, k_max, b, f.dtype,
+                               krylov_dtype=krylov_dtype, sm_count=device_sm_count(f.device))
+        if not tiling.fuse:
+            raise ValueError(
+                f"N = {n} exceeds what one resident pass of the fused kernel holds; "
+                "use the stepwise chain (fuse=False)"
+            )
+        f_tile = tiling.f_tile
+    if f_tile < 1:
+        raise ValueError(f"f_tile must be >= 1, got {f_tile}")
+    coeffs_dev = torch.as_tensor(c, device=f.device).to(torch.float32).contiguous()
+    ta = torch.empty((n, fdim), dtype=krylov_dtype, device=f.device)
+    tb = torch.empty_like(ta)
+    out = torch.empty((eta, n, fdim), dtype=f.dtype, device=f.device)
+    alpha = lmax / 2.0
+    lib = load_library()
+    err = lib.cheb_union_launch(
+        blocks.data_ptr(), cols.data_ptr(), f.data_ptr(), coeffs_dev.data_ptr(),
+        ta.data_ptr(), tb.data_ptr(), _DTYPE_CODE[krylov_dtype], out.data_ptr(),
+        n_rows, k_max, b, fdim, eta, order, f_tile, 1.0 / alpha, 2.0 / alpha,
+        torch.cuda.current_stream(f.device).cuda_stream,
+    )
+    _raise_on(err, "cheb_union_cuda launch")
+    cheb_union_cuda.launches += 1
+    return out
+
+
+cheb_union_cuda.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set both wrappers' launch counts to 0."""
+    cheb_step_cuda.launches = 0
+    cheb_union_cuda.launches = 0

@@ -1,0 +1,305 @@
+// Block-ELL Chebyshev kernels for Hopper (sm_90a), CUDA C++.
+//
+// Two kernels, each the counterpart of a Pallas TPU kernel in
+// src/repro/kernels/cheb_bsr.py:
+//
+// * cheb_step_kernel replaces cheb_step_pallas (_cheb_step_kernel, :40;
+//   pallas_call :128). One eq. 9 step, out = ca*(L t1) + cb*t1 + cc*t2,
+//   L*t1 accumulated in f32 and cast once on store.
+// * cheb_union_kernel replaces cheb_union_pallas (_cheb_union_kernel,
+//   :159; pallas_call :331). The whole union apply, eq. 9 + eq. 11, in one
+//   launch: T_0 = f, T_1 = L f / a - f, T_k = (2/a) L T_{k-1} - 2 T_{k-1}
+//   - T_{k-2}, and the eta accumulators c_{j,0}/2 T_0 + sum_k c_{j,k} T_k.
+//
+// What bounds them on this card. Both are gather-driven sparse products
+// with about 2*B FLOPs per gathered value: far below the ~20 FLOP/byte at
+// which the H100's f32 FMA rate (67 TFLOP/s) rather than its 3.35 TB/s HBM
+// becomes the limit. So they are bound by bytes: the step kernel by
+// reading t1, t2 and writing T_k once per order; the fused kernel, whose
+// least traffic is tiles + f + output, by how much of the Krylov state
+// stays out of HBM between orders.
+//
+// What the design does about it, simply (correct first; wgmma, TMA and
+// clusters are later work):
+//
+// * One thread owns one output element (row i, signal column f) and runs
+//   the whole gather for it with FMAs in f32: no tensor cores, so no TF32
+//   and no minimum tile (the quickstart shape is F = 1, B = 8). Neighbour
+//   threads take neighbour columns, so the gathered t1 reads and the
+//   stores are coalesced when F is wide; the tile row is a broadcast.
+// * Hopper has no scalar prefetch: each thread loads its block-row's
+//   column ids itself (they are small and stay in L1).
+// * The TPU kernel keeps the (N, ft) Krylov state and the (eta, N, ft)
+//   accumulators in VMEM. At N = 8192, eta = 5 one signal column already
+//   needs N*4*(2+eta) = 229 KB, more than the 227 KB a block may use. Here
+//   each thread keeps its elements' eta accumulators in registers for the
+//   whole apply (UNION_ETA at a time, UNION_EPT elements per thread), and
+//   the T_{k-1}/T_{k-2} ping/pong buffers live in a global scratch the
+//   wrapper allocates, which at these sizes stays in the 50 MB L2. Only
+//   the final accumulators are written to HBM, once.
+// * Orders are separated by a grid-wide barrier (cooperative launch,
+//   grid.sync()). The pong write of T_k over T_{k-2} is in place: the one
+//   thread that reads T_{k-2}[i, f] is the thread that writes T_k[i, f],
+//   and the barrier keeps the next order's gathers of T_k behind all
+//   writes. The resident grid holds a chunk of f_tile signal columns; the
+//   kernel walks the chunks (and groups of UNION_ETA multipliers) in a
+//   loop, so one launch does the whole apply at any F and eta.
+// * Coefficients and lmax are runtime arguments (a device array and
+//   floats), so a new filter needs no rebuild.
+//
+// Plain C interface, loaded with ctypes: every pointer and the stream are
+// void*, every launcher returns the cudaError_t of its launch.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int STEP_THREADS = 256;
+constexpr int UNION_THREADS = 256;
+constexpr int UNION_MIN_BLOCKS = 4;  // 1024 resident threads per SM
+constexpr int UNION_EPT = 2;         // elements owned by one thread
+constexpr int UNION_ETA = 8;         // accumulators per element in registers
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Loads. Inputs no thread writes during the launch (tiles, columns, the
+// step kernel's t1/t2, the union kernel's f) may take the read-only path.
+// The union kernel's Krylov ping/pong buffers are written by other blocks
+// between grid barriers, so they are read with __ldcg (through L2, which
+// every SM sees once grid.sync() returns): the non-coherent read-only path
+// could serve a T_{k-2} value cached before the barrier.
+template <bool kL2, typename T>
+__device__ __forceinline__ float load(const T* p) {
+  if constexpr (kL2) return to_f32(__ldcg(p));
+  else return to_f32(__ldg(p));
+}
+
+// (L x)[i, col] in f32 over the Block-ELL row of vertex i. A block column
+// outside [0, n_rows) is never dereferenced: the element comes out NaN, so
+// a malformed operand shows in the result instead of reading out of
+// bounds (the wrappers do not synchronise to check the columns).
+template <bool kL2, typename TB, typename TX>
+__device__ __forceinline__ float lx_elem(const TB* __restrict__ blocks,
+                                         const int* __restrict__ cols, const TX* x, long i,
+                                         long col, int n_rows, int k_max, int B, long F) {
+  const long br = i / B;
+  const int r = static_cast<int>(i - br * B);
+  float s = 0.f;
+  for (int kk = 0; kk < k_max; ++kk) {
+    const int cc = __ldg(cols + br * k_max + kk);
+    if (static_cast<unsigned>(cc) >= static_cast<unsigned>(n_rows)) return __int_as_float(0x7fc00000);
+    const long c = cc;
+    const TB* tile = blocks + ((br * k_max + kk) * B + r) * B;
+    const TX* xs = x + c * B * F + col;
+    for (int jj = 0; jj < B; ++jj) s = fmaf(load<false>(tile + jj), load<kL2>(xs + jj * F), s);
+  }
+  return s;
+}
+
+template <typename TB, typename TT>
+__global__ void __launch_bounds__(STEP_THREADS)
+cheb_step_kernel(const TB* __restrict__ blocks, const int* __restrict__ cols,
+                 const TT* __restrict__ t1, const TT* __restrict__ t2,
+                 TT* __restrict__ out, int n_rows, int k_max, int B, int F,
+                 int f_tile, float ca, float cb, float cc) {
+  // blockIdx.y picks a slab of f_tile columns; x walks its N * ft elements.
+  const long N = static_cast<long>(n_rows) * B;
+  const long f0 = static_cast<long>(blockIdx.y) * f_tile;
+  const long fc = min(static_cast<long>(f_tile), F - f0);
+  const long n_el = N * fc;
+  for (long e = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; e < n_el;
+       e += static_cast<long>(gridDim.x) * blockDim.x) {
+    const long i = e / fc;
+    const long col = f0 + (e - i * fc);
+    const long idx = i * F + col;
+    const float lx = lx_elem<false>(blocks, cols, t1, i, col, n_rows, k_max, B, F);
+    float v = ca * lx + cb * load<false>(t1 + idx);
+    if (cc != 0.f) v += cc * load<false>(t2 + idx);
+    out[idx] = from_f32<TT>(v);
+  }
+}
+
+template <typename KT>
+__global__ void __launch_bounds__(UNION_THREADS, UNION_MIN_BLOCKS)
+cheb_union_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+                  const float* __restrict__ f, const float* __restrict__ coeffs,
+                  KT* ta, KT* tb, float* __restrict__ out, int n_rows, int k_max,
+                  int B, int F, int eta, int order, int f_tile, float inv_alpha,
+                  float two_inv_alpha) {
+  cg::grid_group grid = cg::this_grid();
+  const long N = static_cast<long>(n_rows) * B;
+  const long n_threads = static_cast<long>(gridDim.x) * blockDim.x;
+  const long tid = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int ncoef = order + 1;
+
+  for (int j0 = 0; j0 < eta; j0 += UNION_ETA) {
+    const int ne = min(UNION_ETA, eta - j0);
+    const float* cj = coeffs + static_cast<long>(j0) * ncoef;
+    for (long f0 = 0; f0 < F; f0 += f_tile) {
+      const long fc = min(static_cast<long>(f_tile), F - f0);
+      const long n_el = N * fc;
+      float acc[UNION_EPT][UNION_ETA];
+
+      // k = 0, 1: T_1 = L f / a - f into the ping buffer; accumulators set.
+#pragma unroll
+      for (int s = 0; s < UNION_EPT; ++s) {
+        const long e = tid + s * n_threads;
+        if (e < n_el) {
+          const long i = e / fc;
+          const long idx = i * F + f0 + (e - i * fc);
+          const float t0 = load<false>(f + idx);
+          const float t1 =
+              lx_elem<false>(blocks, cols, f, i, idx - i * F, n_rows, k_max, B, F) * inv_alpha - t0;
+          ta[idx] = from_f32<KT>(t1);
+#pragma unroll
+          for (int j = 0; j < UNION_ETA; ++j)
+            acc[s][j] = j < ne ? 0.5f * cj[j * ncoef] * t0 + cj[j * ncoef + 1] * t1 : 0.f;
+        }
+      }
+      grid.sync();
+
+      // k >= 2: even k reads T_{k-1} from ta and writes tb; odd k the
+      // reverse. T_{k-2} is the destination itself (read, then overwritten
+      // by the same thread), except at k = 2 where it is f.
+      for (int k = 2; k <= order; ++k) {
+        const KT* src1 = (k % 2 == 0) ? ta : tb;
+        KT* dst = (k % 2 == 0) ? tb : ta;
+#pragma unroll
+        for (int s = 0; s < UNION_EPT; ++s) {
+          const long e = tid + s * n_threads;
+          if (e < n_el) {
+            const long i = e / fc;
+            const long idx = i * F + f0 + (e - i * fc);
+            const float lx = lx_elem<true>(blocks, cols, src1, i, idx - i * F, n_rows, k_max, B, F);
+            const float prev2 = (k == 2) ? load<false>(f + idx) : load<true>(dst + idx);
+            const float tn = two_inv_alpha * lx - 2.f * load<true>(src1 + idx) - prev2;
+            dst[idx] = from_f32<KT>(tn);
+#pragma unroll
+            for (int j = 0; j < UNION_ETA; ++j)
+              if (j < ne) acc[s][j] += __ldg(cj + j * ncoef + k) * tn;
+          }
+        }
+        grid.sync();
+      }
+
+#pragma unroll
+      for (int s = 0; s < UNION_EPT; ++s) {
+        const long e = tid + s * n_threads;
+        if (e < n_el) {
+          const long i = e / fc;
+          const long idx = i * F + f0 + (e - i * fc);
+#pragma unroll
+          for (int j = 0; j < UNION_ETA; ++j)
+            if (j < ne) out[static_cast<long>(j0 + j) * N * F + idx] = acc[s][j];
+        }
+      }
+      grid.sync();  // the next chunk or eta group reuses ta
+    }
+  }
+}
+
+template <typename TB, typename TT>
+cudaError_t launch_step(const void* blocks, const void* cols, const void* t1, const void* t2,
+                        void* out, int n_rows, int k_max, int B, int F, int f_tile,
+                        float ca, float cb, float cc, cudaStream_t stream) {
+  const long n_el = static_cast<long>(n_rows) * B * f_tile;
+  const long want = (n_el + STEP_THREADS - 1) / STEP_THREADS;
+  const dim3 grid(static_cast<unsigned>(want < 65535 ? want : 65535),
+                  static_cast<unsigned>((F + f_tile - 1) / f_tile));
+  cheb_step_kernel<TB, TT><<<grid, STEP_THREADS, 0, stream>>>(
+      static_cast<const TB*>(blocks), static_cast<const int*>(cols),
+      static_cast<const TT*>(t1), static_cast<const TT*>(t2), static_cast<TT*>(out), n_rows,
+      k_max, B, F, f_tile, ca, cb, cc);
+  return cudaGetLastError();
+}
+
+template <typename KT>
+cudaError_t launch_union(const void* blocks, const void* cols, const void* f,
+                         const void* coeffs, void* ta, void* tb, void* out, int n_rows,
+                         int k_max, int B, int F, int eta, int order, int f_tile,
+                         float inv_alpha, float two_inv_alpha, cudaStream_t stream) {
+  int device = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cheb_union_kernel<KT>,
+                                                      UNION_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  const long n_el = static_cast<long>(n_rows) * B * f_tile;
+  const long per_block = static_cast<long>(UNION_THREADS) * UNION_EPT;
+  const long want = (n_el + per_block - 1) / per_block;
+  // Every block must be resident at once for grid.sync(); a chunk that
+  // needs more threads than the card holds is refused, not truncated.
+  if (want > static_cast<long>(per_sm) * n_sm) return cudaErrorCooperativeLaunchTooLarge;
+  const float* blocks_p = static_cast<const float*>(blocks);
+  const int* cols_p = static_cast<const int*>(cols);
+  const float* f_p = static_cast<const float*>(f);
+  const float* coeffs_p = static_cast<const float*>(coeffs);
+  KT* ta_p = static_cast<KT*>(ta);
+  KT* tb_p = static_cast<KT*>(tb);
+  float* out_p = static_cast<float*>(out);
+  void* args[] = {&blocks_p, &cols_p, &f_p, &coeffs_p, &ta_p, &tb_p, &out_p,
+                  &n_rows, &k_max, &B, &F, &eta, &order, &f_tile, &inv_alpha,
+                  &two_inv_alpha};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cheb_union_kernel<KT>),
+                                    dim3(static_cast<unsigned>(want)), dim3(UNION_THREADS),
+                                    args, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype codes: 0 = float32, 1 = bfloat16.
+
+int cheb_step_launch(const void* blocks, int blocks_dtype, const void* cols, const void* t1,
+                     const void* t2, void* out, int t_dtype, int n_rows, int k_max, int B,
+                     int F, int f_tile, float ca, float cb, float cc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks_dtype == 0 && t_dtype == 0)
+    return launch_step<float, float>(blocks, cols, t1, t2, out, n_rows, k_max, B, F, f_tile,
+                                     ca, cb, cc, s);
+  if (blocks_dtype == 0 && t_dtype == 1)
+    return launch_step<float, __nv_bfloat16>(blocks, cols, t1, t2, out, n_rows, k_max, B, F,
+                                             f_tile, ca, cb, cc, s);
+  if (blocks_dtype == 1 && t_dtype == 0)
+    return launch_step<__nv_bfloat16, float>(blocks, cols, t1, t2, out, n_rows, k_max, B, F,
+                                             f_tile, ca, cb, cc, s);
+  if (blocks_dtype == 1 && t_dtype == 1)
+    return launch_step<__nv_bfloat16, __nv_bfloat16>(blocks, cols, t1, t2, out, n_rows, k_max,
+                                                     B, F, f_tile, ca, cb, cc, s);
+  return cudaErrorInvalidValue;
+}
+
+int cheb_union_launch(const void* blocks, const void* cols, const void* f, const void* coeffs,
+                      void* ta, void* tb, int krylov_dtype, void* out, int n_rows, int k_max,
+                      int B, int F, int eta, int order, int f_tile, float inv_alpha,
+                      float two_inv_alpha, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (krylov_dtype == 0)
+    return launch_union<float>(blocks, cols, f, coeffs, ta, tb, out, n_rows, k_max, B, F, eta,
+                               order, f_tile, inv_alpha, two_inv_alpha, s);
+  if (krylov_dtype == 1)
+    return launch_union<__nv_bfloat16>(blocks, cols, f, coeffs, ta, tb, out, n_rows, k_max, B,
+                                       F, eta, order, f_tile, inv_alpha, two_inv_alpha, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,0 +1,91 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: every test skips where there is no CUDA device (decided
+inside the ``cuda_device`` fixture, never at import). On a card run them
+with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graph as tgraph
+from repro_torch.core import multipliers as tmult
+from repro_torch.filters import GraphFilter
+from repro_torch.kernels import cheb_bsr
+from repro_torch.kernels import ref as tref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(n_rows, k_max, block, f, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    blocks = torch.randn(n_rows, k_max, block, block, generator=gen)
+    cols = torch.stack([torch.randperm(n_rows, generator=gen)[:k_max] for _ in range(n_rows)])
+    t1 = torch.randn(n_rows * block, f, generator=gen)
+    t2 = torch.randn(n_rows * block, f, generator=gen)
+    return [x.to(device) for x in (blocks, cols.to(torch.int32), t1, t2)]
+
+
+@pytest.mark.parametrize("block,f", [(8, 1), (8, 33), (16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("first", [False, True])
+def test_step_kernel_matches_plain(cuda_device, block, f, dtype, first):
+    blocks, cols, t1, t2 = _operands(12, 3, block, f, cuda_device)
+    blocks, t1, t2 = blocks.to(dtype), t1.to(dtype), t2.to(dtype)
+    before = cheb_bsr.cheb_step_cuda.launches
+    got = cheb_bsr.cheb_step_cuda(blocks, cols, t1, t2, alpha=3.7, first=first, f_tile=16)
+    torch.cuda.synchronize()
+    assert cheb_bsr.cheb_step_cuda.launches == before + 1
+    want = tref.cheb_step_ref(blocks, cols, t1, t2, 3.7, first=first)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("krylov", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eta,order,f_tile", [(1, 1, None), (3, 12, 5), (10, 20, None)])
+def test_union_kernel_matches_plain(cuda_device, krylov, eta, order, f_tile):
+    # Laplacian tiles: the recurrence is stable only for a spectrum inside
+    # [0, lmax]; on random tiles rounding differences grow with the order.
+    g = tgraph.random_sensor_graph(torch.Generator().manual_seed(order), 256, 0.1, 0.11,
+                                   device=cuda_device)
+    lmax = float(g.lmax_bound())
+    bell = tref.bsr_from_dense(g.laplacian(), 8)
+    blocks, cols = bell.blocks, bell.cols
+    f = torch.randn(256, 40, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    coeffs = np.random.RandomState(order).randn(eta, order + 1) / (1 + np.arange(order + 1))
+    before = cheb_bsr.cheb_union_cuda.launches
+    got = cheb_bsr.cheb_union_cuda(blocks, cols, f, coeffs=coeffs, lmax=lmax,
+                                   f_tile=f_tile, krylov_dtype=krylov)
+    torch.cuda.synchronize()
+    assert cheb_bsr.cheb_union_cuda.launches == before + 1
+    want = tref.cheb_union_ref(blocks, cols, f, coeffs, lmax, krylov_dtype=krylov)
+    if krylov == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert float((got - want).abs().max() / want.abs().max()) < 16 * 2.0**-8
+
+
+def test_bsr_backend_on_cuda_reaches_only_the_kernels(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    g = tgraph.connected_sensor_graph(gen, n=500, device=cuda_device)
+    filt = GraphFilter.from_multipliers([tmult.tikhonov(1.0, 1)], 20, graph=g)
+    y = torch.randn(500, 3, generator=gen).to(cuda_device)
+    dense = filt.apply(y, backend="dense")
+    cheb_bsr.reset_launch_counts()
+    fused = filt.apply(y, backend="bsr")
+    stepwise = filt.apply(y, backend="bsr", fuse=False)
+    torch.cuda.synchronize()
+    assert cheb_bsr.cheb_union_cuda.launches == 1
+    assert cheb_bsr.cheb_step_cuda.launches == 20
+    torch.testing.assert_close(fused, dense, rtol=0, atol=1e-4)
+    torch.testing.assert_close(stepwise, dense, rtol=0, atol=1e-4)

@@ -1,0 +1,230 @@
+"""Port parity for ``repro_torch.kernels``: the plain versions of the two
+Block-ELL kernels against the reference Pallas kernels in interpret mode,
+the ops chains, the wrappers' CPU path and the Hopper tiling decision."""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.core import chebyshev as jcheb
+from repro.core import multipliers as jmult
+from repro.kernels import ref as jref
+from repro.kernels.cheb_bsr import cheb_step_pallas, cheb_union_pallas
+from repro_torch import interop
+from repro_torch.kernels import autotune, cheb_bsr, ops
+from repro_torch.kernels import ref as tref
+
+BF16_REL_BOUND = 16 * 2.0**-8  # tests/test_krylov_precision.py
+
+
+def _random_operands(n_rows, k_max, block, f, seed=0, scale=1.0):
+    rs = np.random.RandomState(seed)
+    blocks = (scale * rs.randn(n_rows, k_max, block, block)).astype(np.float32)
+    cols = np.stack(
+        [np.random.RandomState(i).choice(n_rows, size=k_max, replace=False) for i in range(n_rows)]
+    ).astype(np.int32)
+    t1 = rs.randn(n_rows * block, f).astype(np.float32)
+    t2 = rs.randn(n_rows * block, f).astype(np.float32)
+    return blocks, cols, t1, t2
+
+
+def _both(x, dtype):
+    """The same values in JAX and torch, rounded once to ``dtype``."""
+    if dtype == "bfloat16":
+        xb = x.astype(ml_dtypes.bfloat16)
+        return jnp.asarray(xb), torch.as_tensor(xb.astype(np.float32)).to(torch.bfloat16)
+    return jnp.asarray(x), torch.as_tensor(x)
+
+
+def _f64(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64).numpy()
+    return np.asarray(x).astype(np.float64)
+
+
+@pytest.mark.parametrize("block,f,ftile", [(8, 8, 8), (8, 32, 16), (16, 128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("first", [False, True])
+def test_cheb_step_ref_matches_pallas(block, f, ftile, dtype, first):
+    blocks, cols, t1, t2 = _random_operands(6, 3, block, f)
+    bj, bt = _both(blocks, dtype)
+    t1j, t1t = _both(t1, dtype)
+    t2j, t2t = _both(t2, dtype)
+    alpha = 3.7
+    want = cheb_step_pallas(
+        bj, jnp.asarray(cols), t1j, t2j, alpha=alpha, first=first, f_tile=ftile, interpret=True
+    )
+    got = tref.cheb_step_ref(bt, torch.as_tensor(cols), t1t, t2t, alpha, first=first)
+    assert got.dtype == t1t.dtype
+    # Through the wrapper: a CPU tensor takes the plain version, uncounted.
+    before = cheb_bsr.cheb_step_cuda.launches
+    wrapped = cheb_bsr.cheb_step_cuda(
+        bt, torch.as_tensor(cols), t1t, t2t, alpha=alpha, first=first, f_tile=ftile
+    )
+    assert cheb_bsr.cheb_step_cuda.launches == before
+    assert torch.equal(wrapped, got)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(_f64(got), _f64(want), rtol=tol, atol=tol)
+
+
+def _laplacian_operands(n=96, block=8, seed=0):
+    import jax
+
+    from repro.core import graph as jgraph
+
+    g = jgraph.connected_sensor_graph(jax.random.PRNGKey(seed), n=n, sigma=0.17, kappa=0.18)
+    lap = np.asarray(g.laplacian())
+    order = jgraph.spatial_partition_order(np.asarray(g.coords), max(n // block, 1))
+    bell = jref.bsr_from_dense(lap[np.ix_(order, order)], block)
+    return bell, float(g.lmax_bound())
+
+
+@pytest.fixture(scope="module")
+def lap_operands():
+    return _laplacian_operands()
+
+
+@pytest.mark.parametrize("order,f", [(1, 4), (2, 1), (7, 8)])
+def test_cheb_union_ref_matches_pallas_f32(lap_operands, order, f):
+    bell, lmax = lap_operands
+    coeffs = jcheb.cheb_coefficients([jmult.heat(0.6), jmult.tikhonov(1.0, 1)], order, lmax)
+    x = np.random.RandomState(order).randn(bell.n, f).astype(np.float32)
+    ctup = tuple(tuple(float(v) for v in row) for row in coeffs)
+    want = cheb_union_pallas(
+        bell.blocks, bell.cols, jnp.asarray(x), coeffs=ctup, lmax=lmax, interpret=True
+    )
+    tb = interop.block_ell_from_numpy(np.asarray(bell.blocks), np.asarray(bell.cols), device="cpu")
+    got = tref.cheb_union_ref(tb.blocks, tb.cols, torch.as_tensor(x), coeffs, lmax)
+    assert got.shape == (2, bell.n, f) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    # The wrapper on CPU tensors is the plain version, uncounted.
+    before = cheb_bsr.cheb_union_cuda.launches
+    wrapped = cheb_bsr.cheb_union_cuda(
+        tb.blocks, tb.cols, torch.as_tensor(x), coeffs=coeffs, lmax=lmax
+    )
+    assert cheb_bsr.cheb_union_cuda.launches == before
+    assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize("order", [6])
+def test_cheb_union_ref_bf16_krylov_within_bound(lap_operands, order):
+    bell, lmax = lap_operands
+    coeffs = jcheb.cheb_coefficients([jmult.heat(0.5), jmult.tikhonov(1.0, 1)], order, lmax)
+    x = np.random.RandomState(4).randn(bell.n, 8).astype(np.float32)
+    ctup = tuple(tuple(float(v) for v in row) for row in coeffs)
+    want_f32 = np.asarray(jref.cheb_apply_bsr_ref(bell, jnp.asarray(x), coeffs, lmax))
+    want_bf16 = np.asarray(cheb_union_pallas(
+        bell.blocks, bell.cols, jnp.asarray(x), coeffs=ctup, lmax=lmax, interpret=True,
+        krylov_dtype="bfloat16",
+    ))
+    tb = interop.block_ell_from_numpy(np.asarray(bell.blocks), np.asarray(bell.cols), device="cpu")
+    got = tref.cheb_union_ref(
+        tb.blocks, tb.cols, torch.as_tensor(x), coeffs, lmax, krylov_dtype=torch.bfloat16
+    ).numpy()
+    assert got.dtype == np.float32  # accumulators and output stay f32
+    scale = np.max(np.abs(want_f32))
+    assert np.max(np.abs(got - want_f32)) / scale < BF16_REL_BOUND
+    assert np.max(np.abs(got - want_bf16)) / scale < BF16_REL_BOUND
+
+
+@pytest.mark.parametrize("order", [5, 20])
+def test_cheb_union_ref_default_is_explicit_f32(lap_operands, order):
+    bell, lmax = lap_operands
+    coeffs = jcheb.cheb_coefficients([jmult.heat(0.5)], order, lmax)
+    x = torch.as_tensor(np.random.RandomState(5).randn(bell.n, 8).astype(np.float32))
+    tb = interop.block_ell_from_numpy(np.asarray(bell.blocks), np.asarray(bell.cols), device="cpu")
+    default = tref.cheb_union_ref(tb.blocks, tb.cols, x, coeffs, lmax)
+    explicit = tref.cheb_union_ref(tb.blocks, tb.cols, x, coeffs, lmax, krylov_dtype=torch.float32)
+    assert default.numpy().tobytes() == explicit.numpy().tobytes()
+    fused = ops.cheb_apply_bsr_fused(tb.blocks, tb.cols, x, coeffs, lmax)
+    fused_f32 = ops.cheb_apply_bsr_fused(tb.blocks, tb.cols, x, coeffs, lmax,
+                                         krylov_dtype=torch.float32)
+    assert fused.numpy().tobytes() == fused_f32.numpy().tobytes()
+
+
+@pytest.mark.parametrize("krylov", [None, "bfloat16"])
+def test_stepwise_chain_matches_reference(lap_operands, krylov):
+    bell, lmax = lap_operands
+    coeffs = jcheb.cheb_coefficients([jmult.heat(0.6), jmult.tikhonov(1.0, 1)], 12, lmax)
+    x = np.random.RandomState(6).randn(bell.n, 8).astype(np.float32)
+    want = np.asarray(jref.cheb_apply_bsr_ref(bell, jnp.asarray(x), coeffs, lmax))
+    tb = interop.block_ell_from_numpy(np.asarray(bell.blocks), np.asarray(bell.cols), device="cpu")
+    kd = torch.bfloat16 if krylov else None
+    got = ops.cheb_apply_bsr(tb.blocks, tb.cols, torch.as_tensor(x), coeffs, lmax,
+                             krylov_dtype=kd).numpy()
+    if krylov:
+        assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < BF16_REL_BOUND
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    plain = tref.cheb_apply_bsr_ref(tb, torch.as_tensor(x), coeffs, lmax).numpy()
+    np.testing.assert_allclose(plain, want, rtol=1e-5, atol=1e-5)
+    fused = ops.cheb_apply_bsr_fused(tb.blocks, tb.cols, torch.as_tensor(x), coeffs, lmax)
+    np.testing.assert_allclose(fused.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_bsr_matvec_ref_matches_reference(lap_operands):
+    bell, _ = lap_operands
+    x = np.random.RandomState(7).randn(bell.n, 3).astype(np.float32)
+    want = np.asarray(jref.bsr_matvec_ref(bell, jnp.asarray(x)))
+    tb = interop.block_ell_from_numpy(np.asarray(bell.blocks), np.asarray(bell.cols), device="cpu")
+    np.testing.assert_allclose(
+        tref.bsr_matvec_ref(tb, torch.as_tensor(x)).numpy(), want, rtol=1e-6, atol=1e-6
+    )
+
+
+def test_block_ell_rejects_out_of_range_columns():
+    blocks = torch.zeros(3, 2, 8, 8)
+    with pytest.raises(ValueError, match="block columns"):
+        tref.BlockEll(blocks, torch.tensor([[0, 1], [2, 3], [0, 0]], dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        tref.BlockEll(blocks, torch.zeros(3, 2, dtype=torch.int64))
+
+
+def test_wrappers_check_operands():
+    blocks, cols, t1, t2 = (torch.as_tensor(a) for a in _random_operands(4, 2, 8, 4))
+    with pytest.raises(ValueError, match="N ="):
+        cheb_bsr.cheb_step_cuda(blocks, cols, t1[:8], t2[:8], alpha=2.0)
+    with pytest.raises(TypeError, match="t2 dtype"):
+        cheb_bsr.cheb_step_cuda(blocks, cols, t1, t2.double(), alpha=2.0)
+    with pytest.raises(ValueError, match="order 1"):
+        cheb_bsr.cheb_union_cuda(blocks, cols, t1, coeffs=[[1.0]], lmax=4.0)
+
+
+# ---- the Hopper tiling decision ------------------------------------------
+
+CAPACITY = 132 * 1024 * 2  # H100 SXM: 132 SMs x 1024 resident threads x 2 elements
+
+
+def test_select_tiling_fuses_while_one_column_fits_the_resident_grid():
+    """The docstring's rule: fuse iff the signal is f32 and
+    N <= sm_count * 1024 * 2; f_tile is the columns one pass holds."""
+    assert autotune.union_resident_elems() == CAPACITY
+    t = autotune.select_tiling(8192, 256, 5, 1024, 10, 8)
+    assert t.fuse and t.f_tile == CAPACITY // 8192 == 33
+    assert t.pass_bytes <= autotune.L2_BUDGET_BYTES
+    t = autotune.select_tiling(504, 1, 1, 63, 12, 8)
+    assert t.fuse and t.f_tile == 1
+    t = autotune.select_tiling(CAPACITY, 4, 1, CAPACITY // 8, 4, 8)
+    assert t.fuse and t.f_tile == 1
+    t = autotune.select_tiling(CAPACITY + 8, 4, 1, CAPACITY // 8 + 1, 4, 8)
+    assert not t.fuse and t.f_tile == 4
+    t = autotune.select_tiling(8192, 256, 5, 1024, 10, 8, torch.bfloat16)
+    assert not t.fuse and t.f_tile == autotune.STEP_F_TILE
+    # A smaller card holds less: the decision follows its SM count.
+    t = autotune.select_tiling(8192, 256, 5, 1024, 10, 8, sm_count=114)
+    assert t.fuse and t.f_tile == 114 * 2048 // 8192
+
+
+def test_select_tiling_l2_budget_limits_the_pass():
+    # Tiles alone near the budget leave room for a narrow pass only.
+    n, n_rows, block = 4096, 512, 8
+    k_max = (autotune.L2_BUDGET_BYTES - 10 * n * 12) // (n_rows * (block * block * 4 + 4))
+    t = autotune.select_tiling(n, 64, 1, n_rows, k_max, block)
+    assert t.fuse and 1 <= t.f_tile < 64
+    assert t.pass_bytes <= autotune.L2_BUDGET_BYTES
+
+
+def test_f_tile_table_starts_empty():
+    assert autotune._F_TILE_TABLE == {}
