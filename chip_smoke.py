@@ -7,11 +7,14 @@ Phases, each printing its own lines:
 1. device: the card, its power limit as ``nvidia-smi`` reports it, and
    the TF32 switches (both forced off: every f32 path is IEEE f32);
 2. build: compiles ``src/repro_torch/kernels/csrc/cheb_bsr.cu`` with
-   ``nvcc`` for sm_90a (first use) and reports how long it took;
+   ``nvcc`` for sm_90a (first use), reports how long it took and each
+   kernel's registers and spills from ``ptxas -v``, and fails if a union
+   kernel spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on random Block-ELL operands at B = 8 and 16 (random tiles for the
    step, random-graph Laplacian tiles for the union) and on the deployment
-   operands, in f32 and bf16;
+   operands, in f32 and bf16; the union also at F = 100 (a ragged last
+   pass) on the deployment graph tiled at B = 8 and at B = 16;
 4. main path: with the launch counts set to 0, the paper-shape quickstart
    (``repro_torch.quickstart.main``: N = 500, Tikhonov M = 20, dense and
    bsr fused and stepwise, heat smoothing, SSL) and the deployment shape
@@ -22,7 +25,10 @@ Phases, each printing its own lines:
 5. timing at the deployment shape: median CUDA-event milliseconds over 15
    runs after 3 warm-up runs, for the applies and for each kernel beside
    its plain version, with each kernel's bound from the bytes and
-   operations of this run's inputs.
+   operations of this run's inputs; the union kernel's device time from
+   ``torch.profiler`` (the event time also holds the wrapper's host
+   work), and its cost per order and per launch from one 64-column pass
+   at M = 2 and M = 20.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -78,8 +85,8 @@ def main() -> int:
     from repro_torch.core import multipliers as tmult
     from repro_torch.filters import GraphFilter
     from repro_torch.kernels import cheb_bsr, ref as tref
-    from repro_torch.kernels._build import load_library
-    from repro_torch.kernels.autotune import select_tiling
+    from repro_torch.kernels._build import build_report, load_library, parse_ptxas_report
+    from repro_torch.kernels.autotune import select_tiling, union_grid_barriers
     from repro_torch import quickstart
 
     dev = torch.device("cuda", 0)
@@ -103,6 +110,19 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     say(f"[build] nvcc sm_90a build+load {time.perf_counter() - t0:.1f} s")
+    ptxas = parse_ptxas_report(build_report())
+    union_builds = 0
+    for name, info in sorted(ptxas.items()):
+        m = re.search(r"(cheb_(?:union|step)_kernel)I(.*?)EEv", name)
+        label = f"{m.group(1)}<{m.group(2)}>" if m else name
+        say(f"[build] ptxas {label}: {info['registers']} registers, spill stores "
+            f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
+        if "cheb_union_kernel" in name:
+            union_builds += 1
+            require(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+                    f"{label} spills registers")
+    require(union_builds == 4, f"ptxas reported {union_builds} union kernels (want B 8, 16 x "
+            "f32, bf16 Krylov)")
 
     # ---- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -191,6 +211,14 @@ def main() -> int:
     alpha = lmax / 2.0
     step_err = check_step(bell.blocks, bell.cols, f_deploy, t2_deploy, alpha, "deploy")
     union_err = check_union(bell.blocks, bell.cols, f_deploy, filt.coeffs, lmax, "deploy")
+    # F = 100: the default tiling takes a pass of 64 columns and a ragged
+    # one of 36, at B = 8 and on the same graph tiled at B = 16.
+    f_ragged = f_deploy[:, :100].contiguous()
+    union_err = max(union_err, check_union(bell.blocks, bell.cols, f_ragged, filt.coeffs, lmax,
+                                           "deploy B=8 F=100"))
+    bell16 = filt.prepare_backend("bsr", block_size=16).bell
+    union_err = max(union_err, check_union(bell16.blocks, bell16.cols, f_ragged, filt.coeffs,
+                                           lmax, "deploy B=16 F=100"))
 
     # ---- 4. the main path, counted ------------------------------------------
     cheb_bsr.reset_launch_counts()
@@ -230,7 +258,10 @@ def main() -> int:
     d_fd = float((out_fused - out_dense).abs().max())
     d_sd = float((out_step - out_dense).abs().max())
     require(max(d_fs, d_fd, d_sd) < AGREE_TOL, f"deploy agreement {d_fs:.2e} {d_fd:.2e} {d_sd:.2e}")
-    say(f"[deploy] eta={filt.eta} M={ORDER} F={DEPLOY_F} f_tile={tiling.f_tile}: "
+    passes = -(-DEPLOY_F // tiling.f_tile)
+    barriers = union_grid_barriers(DEPLOY_F, tiling.f_tile, filt.eta, ORDER, BLOCK)
+    say(f"[deploy] eta={filt.eta} M={ORDER} F={DEPLOY_F} f_tile={tiling.f_tile} passes {passes} "
+        f"grid barriers per fused apply {barriers}: "
         f"max|fused-stepwise| {d_fs:.2e} |fused-dense| {d_fd:.2e} |stepwise-dense| {d_sd:.2e} "
         f"(tol {AGREE_TOL:g}); launches union 1 per fused apply, step {ORDER} per stepwise apply")
     say(f"[main path] launches in the counted run: cheb_union {main_union}, "
@@ -271,6 +302,33 @@ def main() -> int:
     say("[timing] deployment applies, median ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in apply_ms.items()))
 
+    # Device time of each kernel, without the host work the events include.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, fp, coeffs=filt.coeffs, lmax=lmax)
+            cheb_bsr.cheb_step_cuda(bell.blocks, bell.cols, fp, t2_deploy, alpha=alpha)
+        torch.cuda.synchronize()
+    device_ms = {}
+    for ev in prof.key_averages():
+        for name in ("cheb_union_kernel", "cheb_step_kernel"):
+            if name in ev.key and ev.count:
+                us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+                device_ms[name] = us / ev.count / 1e3
+    # One 64-column pass at M = 2 and 20: the slope is the cost of an order
+    # (its gathers and its grid barrier), the rest the cost of a launch.
+    f64 = fp[:, :64].contiguous()
+    one_pass = {m: median_ms(lambda m=m: cheb_bsr.cheb_union_cuda(
+        bell.blocks, bell.cols, f64, coeffs=filt.coeffs[:, :m + 1], lmax=lmax))
+        for m in (2, ORDER)}
+    per_order = (one_pass[ORDER] - one_pass[2]) / (ORDER - 2)
+    say("[timing] device ms (torch.profiler): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in device_ms.items()) + (" (none traced)" if not device_ms else ""))
+    say(f"[timing] cheb_union one 64-column pass: M=2 {one_pass[2]:.4f} ms, M={ORDER} "
+        f"{one_pass[ORDER]:.4f} ms -> {per_order * 1e3:.2f} us per order, "
+        f"{(one_pass[2] - 2 * per_order) * 1e3:.1f} us per launch")
+
     # Bounds from this run's inputs: each input read once, each output
     # written once; operations count only the nonzero entries of L (the
     # zeros inside stored tiles and the padding tiles need no work).
@@ -301,7 +359,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/cheb_bsr.cu",
             "replaces": "src/repro/kernels/cheb_bsr.py:256",
             "launches": main_union, "launches_per_apply": u1 - u0, "max_abs_err": union_err,
-            "ms": union_ms, "plain_ms": union_plain_ms,
+            "ms": union_ms, "device_ms": device_ms.get("cheb_union_kernel"),
+            "plain_ms": union_plain_ms,
             "bound_ms": ub, "bound_by": ub_by, "library_ms": None,
         },
         {
@@ -309,7 +368,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/cheb_bsr.cu",
             "replaces": "src/repro/kernels/cheb_bsr.py:85",
             "launches": main_step, "launches_per_apply": s2 - s1, "max_abs_err": step_err,
-            "ms": step_ms, "plain_ms": step_plain_ms,
+            "ms": step_ms, "device_ms": device_ms.get("cheb_step_kernel"),
+            "plain_ms": step_plain_ms,
             "bound_ms": sb, "bound_by": sb_by, "library_ms": None,
         },
     ]

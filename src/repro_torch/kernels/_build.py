@@ -4,7 +4,9 @@
 ``sm_90a`` into ``_build/`` beside this file (listed in ``.gitignore``) on
 first use, keyed by a hash of the source, and loads it with ``ctypes``.
 Nothing is compiled at import time, and a failed build raises: there is no
-fallback to the plain versions for CUDA tensors.
+fallback to the plain versions for CUDA tensors. ``ptxas -v``'s report of
+each kernel's registers and spills is kept beside the library and read
+with ``build_report()``.
 """
 
 from __future__ import annotations
@@ -12,20 +14,21 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_library"]
+__all__ = ["load_library", "build_report", "parse_ptxas_report"]
 
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE / "csrc" / "cheb_bsr.cu"
 _BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -60,7 +63,41 @@ def _compile(target: Path) -> None:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
+    target.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, target)
+
+
+def _target() -> Path:
+    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"libcheb_bsr_{digest}.so"
+
+
+def build_report() -> str:
+    """``ptxas -v`` output of the current source's build ("" before it)."""
+    report = _target().with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else ""
+
+
+def parse_ptxas_report(text: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per compiled kernel (mangled name) from
+    ``ptxas -v`` output."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": 0, "spill_stores": 0, "spill_loads": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def load_library() -> ctypes.CDLL:
@@ -68,8 +105,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-            target = _BUILD_DIR / f"libcheb_bsr_{digest}.so"
+            target = _target()
             if not target.exists():
                 _compile(target)
             lib = ctypes.CDLL(str(target))

@@ -5,26 +5,34 @@ kernel (``csrc/cheb_bsr.cu``). The reference budgets TPU VMEM (12 MiB) and
 MXU-aligned tiles; neither binds the H100. What the port's fused kernel
 keeps on chip is different:
 
-* each resident thread owns ``UNION_ELEMS_PER_THREAD`` signal elements
-  and keeps their eta accumulators in registers for the whole apply; the
-  kernel is compiled with ``__launch_bounds__(256, 4)``, so an SM holds
-  ``RESIDENT_THREADS_PER_SM`` = 1024 of its threads (64 registers each
+* each resident thread owns ``UNION_ROWS`` = 8 rows of one strip (a
+  strip is the B rows of one block row in one signal column: all of it at
+  B = 8, half at B = 16) for a whole pass, and keeps their 8 x 64/B
+  accumulators in registers; the kernel is compiled with
+  ``__launch_bounds__(256, 2)``, so an SM holds
+  ``UNION_THREADS_PER_SM`` = 512 of its threads (up to 128 registers each
   of the SM's 65,536). All blocks must be resident at once for the
   grid-wide barrier between orders, so one pass holds at most
-  ``sm_count * 1024 * 2`` elements: 270,336 on an H100 SXM (132 SMs);
+  ``sm_count * 512`` threads, N / 8 of them per signal column: 67,584 on
+  an H100 SXM (132 SMs);
+* ``B`` is a template parameter of the kernel, built for
+  ``UNION_BLOCKS`` = (8, 16) only;
 * the T_{k-1}/T_{k-2} ping/pong buffers live in global scratch, and a
   pass's Krylov state plus the tiles should stay in the 50 MB L2, so the
   bytes a pass touches are kept under ``L2_BUDGET_BYTES`` (40 MB).
 
 The decisions:
 
-* ``fuse`` is True exactly when the signal is float32 and one whole
-  signal column (N elements) fits in one resident pass,
-  ``N <= sm_count * RESIDENT_THREADS_PER_SM * UNION_ELEMS_PER_THREAD``.
+* ``fuse`` is True exactly when the signal is float32, ``B`` is in
+  ``UNION_BLOCKS`` and one whole signal column (N / 8 threads) fits in
+  one resident pass, ``N / 8 <= sm_count * UNION_THREADS_PER_SM``.
   Otherwise callers chain the stepwise kernel.
 * ``f_tile`` is, when fused, the signal columns per resident pass: the
-  largest width that fits the pass and the L2 budget; when not fused, the
-  step kernel's column slab, ``min(F, 128)``.
+  largest width that fits the pass and the L2 budget, rounded down to a
+  multiple of 32 when it is at least 32 and does not hold all of F, so
+  every warp of a pass lies in one strip and every pass starts on a
+  128-byte boundary; when not fused, the step kernel's column slab,
+  ``min(F, 128)``.
 
 ``_F_TILE_TABLE`` (measured-good tiles keyed by block size and dtype) is
 empty: it is filled only from H100 measurements.
@@ -39,7 +47,9 @@ import torch
 __all__ = [
     "Tiling",
     "select_tiling",
-    "union_resident_elems",
+    "union_resident_threads",
+    "union_eta_group",
+    "union_grid_barriers",
     "device_sm_count",
     "union_pass_bytes",
     "H100_SMS",
@@ -47,8 +57,11 @@ __all__ = [
 ]
 
 H100_SMS = 132  # H100 SXM (NVIDIA data sheet)
-RESIDENT_THREADS_PER_SM = 1024  # 4 blocks x 256 threads, __launch_bounds__(256, 4)
-UNION_ELEMS_PER_THREAD = 2  # UNION_EPT in csrc/cheb_bsr.cu
+UNION_THREADS_PER_SM = 512  # 2 blocks x 256 threads, __launch_bounds__(256, 2)
+UNION_ROWS = 8  # rows of a strip one thread owns (UNION_ROWS in csrc/cheb_bsr.cu)
+UNION_BLOCKS = (8, 16)  # block sizes the fused kernel is built for
+UNION_ACC = 64  # accumulators a thread keeps (UNION_ACC in csrc/cheb_bsr.cu)
+WARP = 32
 L2_BUDGET_BYTES = 40 * 1024 * 1024  # of the H100's 50 MB L2
 STEP_F_TILE = 128
 
@@ -77,9 +90,22 @@ def device_sm_count(device: torch.device) -> int:
     return H100_SMS
 
 
-def union_resident_elems(sm_count: int = H100_SMS) -> int:
-    """Signal elements one resident pass of the fused kernel holds."""
-    return sm_count * RESIDENT_THREADS_PER_SM * UNION_ELEMS_PER_THREAD
+def union_resident_threads(sm_count: int = H100_SMS) -> int:
+    """Threads (8 rows of one signal column each) one resident pass holds."""
+    return sm_count * UNION_THREADS_PER_SM
+
+
+def union_eta_group(block: int) -> int:
+    """Multipliers the fused kernel accumulates per walk over the passes."""
+    return UNION_ACC // block
+
+
+def union_grid_barriers(f: int, f_tile: int, eta: int, order: int, block: int) -> int:
+    """Grid barriers in one fused launch: ``order - 1`` per pass and
+    multiplier group, and one before each group after the first."""
+    groups = -(-eta // union_eta_group(block))
+    passes = -(-f // min(f_tile, f))
+    return groups * passes * (order - 1) + groups - 1
 
 
 def union_pass_bytes(
@@ -96,7 +122,7 @@ def union_pass_bytes(
     accumulators are in registers and are not counted."""
     tiles = n_rows * k_max * (block * block * 4 + 4)
     signal = n * f_tile * 4
-    krylov = 2 * n * f_tile * torch.empty((), dtype=krylov_dtype).element_size()
+    krylov = 2 * n * f_tile * krylov_dtype.itemsize
     return tiles + signal + krylov
 
 
@@ -119,8 +145,8 @@ def select_tiling(
     n, f : int
         Padded signal shape (N, F).
     eta : int
-        Multipliers in the union (the kernel loops over groups of them;
-        it does not change the decision).
+        Multipliers in the union (the kernel loops over groups of
+        ``union_eta_group(block)``; it does not change the decision).
     n_rows, k_max, block : int
         Block-ELL operand shape.
     dtype : torch.dtype
@@ -131,8 +157,9 @@ def select_tiling(
         SMs of the card (``multi_processor_count``).
     """
     del eta
-    capacity = union_resident_elems(sm_count)
-    fuse = dtype == torch.float32 and n <= capacity
+    capacity = union_resident_threads(sm_count)
+    per_column = n // UNION_ROWS  # threads one signal column takes
+    fuse = dtype == torch.float32 and block in UNION_BLOCKS and per_column <= capacity
     if not fuse:
         return Tiling(
             f_tile=min(f, STEP_F_TILE),
@@ -140,8 +167,11 @@ def select_tiling(
             pass_bytes=union_pass_bytes(n, 1, n_rows, k_max, block, krylov_dtype=krylov_dtype),
         )
     fixed = union_pass_bytes(n, 0, n_rows, k_max, block, krylov_dtype=krylov_dtype)
-    per_column = union_pass_bytes(n, 1, n_rows, k_max, block, krylov_dtype=krylov_dtype) - fixed
-    ft = max(1, min(f, capacity // n, (L2_BUDGET_BYTES - fixed) // per_column))
+    column_bytes = union_pass_bytes(n, 1, n_rows, k_max, block, krylov_dtype=krylov_dtype) - fixed
+    ft = max(1, min(capacity // per_column, (L2_BUDGET_BYTES - fixed) // column_bytes))
+    if ft < f and ft >= WARP:
+        ft -= ft % WARP
+    ft = min(ft, f)
     table = _F_TILE_TABLE.get((block, str(dtype).removeprefix("torch.")), ())
     ft = max((c for c in table if c <= ft), default=ft)
     return Tiling(

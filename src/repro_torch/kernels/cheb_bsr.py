@@ -19,12 +19,14 @@ that name one come out NaN).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.autotune import device_sm_count, select_tiling
+from repro_torch.kernels.autotune import UNION_BLOCKS, device_sm_count, select_tiling
 
 __all__ = ["cheb_step_cuda", "cheb_union_cuda", "reset_launch_counts"]
 
@@ -123,6 +125,14 @@ def cheb_step_cuda(
 cheb_step_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=16)
+def _device_coeffs(raw: bytes, eta: int, device: torch.device) -> torch.Tensor:
+    """The float32 coefficients on ``device``, uploaded once per filter
+    rather than once per apply."""
+    host = torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(eta, -1)
+    return host.to(device)
+
+
 def cheb_union_cuda(
     blocks: torch.Tensor,
     cols: torch.Tensor,
@@ -148,6 +158,9 @@ def cheb_union_cuda(
         the accumulators stay float32.
 
     Returns: (eta, N, F) in ``f.dtype``.
+
+    On CUDA tensors ``B`` must be one the kernel is built for
+    (``autotune.UNION_BLOCKS``), else ``ValueError``.
     """
     n_rows, k_max, b, fdim = _check_operands(blocks, cols, {"f": f})
     c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
@@ -162,8 +175,15 @@ def cheb_union_cuda(
         raise ValueError(f"unsupported device {f.device}")
     if blocks.dtype != torch.float32 or f.dtype != torch.float32:
         raise TypeError(f"blocks and f must be float32, got {blocks.dtype} and {f.dtype}")
+    if b not in UNION_BLOCKS:
+        raise ValueError(
+            f"the fused kernel is built for B in {UNION_BLOCKS}, got B = {b}; "
+            "use the stepwise chain (fuse=False)"
+        )
     _cuda_ready((blocks, cols, f))
     n = n_rows * b
+    if n * fdim >= 2**31:
+        raise ValueError(f"N * F = {n * fdim} must be below 2**31 (32-bit indices)")
     if f_tile is None:
         tiling = select_tiling(n, fdim, eta, n_rows, k_max, b, f.dtype,
                                krylov_dtype=krylov_dtype, sm_count=device_sm_count(f.device))
@@ -175,7 +195,7 @@ def cheb_union_cuda(
         f_tile = tiling.f_tile
     if f_tile < 1:
         raise ValueError(f"f_tile must be >= 1, got {f_tile}")
-    coeffs_dev = torch.as_tensor(c, device=f.device).to(torch.float32).contiguous()
+    coeffs_dev = _device_coeffs(c.astype(np.float32).tobytes(), eta, f.device)
     ta = torch.empty((n, fdim), dtype=krylov_dtype, device=f.device)
     tb = torch.empty_like(ta)
     out = torch.empty((eta, n, fdim), dtype=f.dtype, device=f.device)

@@ -14,36 +14,56 @@
 // What bounds them on this card. Both are gather-driven sparse products
 // with about 2*B FLOPs per gathered value: far below the ~20 FLOP/byte at
 // which the H100's f32 FMA rate (67 TFLOP/s) rather than its 3.35 TB/s HBM
-// becomes the limit. So they are bound by bytes: the step kernel by
-// reading t1, t2 and writing T_k once per order; the fused kernel, whose
-// least traffic is tiles + f + output, by how much of the Krylov state
-// stays out of HBM between orders.
+// becomes the limit. So the step kernel is bound by bytes: reading t1, t2
+// and writing T_k once per order. The fused kernel's least traffic is only
+// tiles + f + output, because the Krylov state never has to leave the
+// chip; over M orders its FMAs outweigh those bytes, and at the deployment
+// shape (N = 8192, F = 256, eta = 5, M = 20) its bound is by operations.
+// What it loses against that bound is how often each gathered value and
+// each tile is re-read from L2, and the grid barriers between orders.
 //
-// What the design does about it, simply (correct first; wgmma, TMA and
-// clusters are later work):
+// What the step kernel's design does about it, simply (correct first;
+// wgmma, TMA and clusters are later work): one thread owns one output
+// element (row i, signal column f) and runs the whole gather for it with
+// FMAs in f32: no tensor cores, so no TF32 and no minimum tile (the
+// quickstart shape is F = 1, B = 8). Neighbour threads take neighbour
+// columns, so the gathered t1 reads and the stores are coalesced when F is
+// wide; the tile row is a broadcast. Hopper has no scalar prefetch: each
+// thread loads its block-row's column ids itself (they stay in L1).
 //
-// * One thread owns one output element (row i, signal column f) and runs
-//   the whole gather for it with FMAs in f32: no tensor cores, so no TF32
-//   and no minimum tile (the quickstart shape is F = 1, B = 8). Neighbour
-//   threads take neighbour columns, so the gathered t1 reads and the
-//   stores are coalesced when F is wide; the tile row is a broadcast.
-// * Hopper has no scalar prefetch: each thread loads its block-row's
-//   column ids itself (they are small and stay in L1).
+// The union kernel is built around the strip, B rows of one signal
+// column inside one block row:
+//
+// * One thread owns UNION_ROWS = 8 rows of one strip (block row br, column
+//   col) for a whole pass: the whole strip at B = 8, half of it at B = 16
+//   (a whole B = 16 strip needs more than the 128 registers a thread may
+//   have and spilled). For each of the row's k_max tiles it reads the B
+//   gathered values T_{k-1}[c*B + jj, col] once into registers and the
+//   tile as loads that every lane of a warp shares, and runs 8 independent
+//   FMA chains, one per row. Each gathered value is read from L2 once per
+//   strip at B = 8 (twice at B = 16), not once per row, and B is a
+//   template parameter (8 or 16), so every loop over rows and tile columns
+//   is unrolled. Lanes take neighbour columns of the same strip, so each
+//   gather is one 128-byte row when a pass is >= 32 wide.
 // * The TPU kernel keeps the (N, ft) Krylov state and the (eta, N, ft)
 //   accumulators in VMEM. At N = 8192, eta = 5 one signal column already
 //   needs N*4*(2+eta) = 229 KB, more than the 227 KB a block may use. Here
-//   each thread keeps its elements' eta accumulators in registers for the
-//   whole apply (UNION_ETA at a time, UNION_EPT elements per thread), and
-//   the T_{k-1}/T_{k-2} ping/pong buffers live in a global scratch the
+//   each thread keeps its rows' accumulators in registers for the whole
+//   pass, 8 rows x UNION_ACC/B multipliers (one group of them at a time),
+//   and the T_{k-1}/T_{k-2} ping/pong buffers live in a global scratch the
 //   wrapper allocates, which at these sizes stays in the 50 MB L2. Only
 //   the final accumulators are written to HBM, once.
 // * Orders are separated by a grid-wide barrier (cooperative launch,
 //   grid.sync()). The pong write of T_k over T_{k-2} is in place: the one
 //   thread that reads T_{k-2}[i, f] is the thread that writes T_k[i, f],
 //   and the barrier keeps the next order's gathers of T_k behind all
-//   writes. The resident grid holds a chunk of f_tile signal columns; the
-//   kernel walks the chunks (and groups of UNION_ETA multipliers) in a
-//   loop, so one launch does the whole apply at any F and eta.
+//   writes. The resident grid (two blocks of 256 per SM, 8 rows of a
+//   column a thread) holds a pass of f_tile signal columns; the kernel
+//   walks the passes (and groups of multipliers) in a loop, so one launch
+//   does the whole apply at any F and eta. A barrier stands only where a buffer is
+//   reused: between the orders of a pass (M - 1), and before a multiplier
+//   group reruns the columns of the last one. Consecutive passes write
+//   disjoint columns of the full (N, F) buffers and need none.
 // * Coefficients and lmax are runtime arguments (a device array and
 //   floats), so a new filter needs no rebuild.
 //
@@ -60,9 +80,9 @@ namespace {
 
 constexpr int STEP_THREADS = 256;
 constexpr int UNION_THREADS = 256;
-constexpr int UNION_MIN_BLOCKS = 4;  // 1024 resident threads per SM
-constexpr int UNION_EPT = 2;         // elements owned by one thread
-constexpr int UNION_ETA = 8;         // accumulators per element in registers
+constexpr int UNION_MIN_BLOCKS = 2;  // 512 resident threads per SM, <= 128 registers a thread
+constexpr int UNION_ROWS = 8;        // rows of a strip one thread owns: all of B = 8, half of 16
+constexpr int UNION_ACC = 64;        // multipliers per group: UNION_ACC / B
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -133,81 +153,123 @@ cheb_step_kernel(const TB* __restrict__ blocks, const int* __restrict__ cols,
   }
 }
 
-template <typename KT>
+// (L x) over UNION_ROWS rows of one strip, rows br*B + r0 .. of signal
+// column col, into s. All B gathered values of each tile are read once;
+// the tile is read column by column as 4-byte loads that every lane of a
+// warp shares (16-byte row loads were hoisted by the compiler and spilled
+// at 128 registers). A block column outside [0, n_rows) is never
+// dereferenced: the rows come out NaN.
+template <int B, bool kL2, typename TX>
+__device__ __forceinline__ void strip_lx(const float* __restrict__ blocks,
+                                         const int* __restrict__ cols, const TX* x, int br,
+                                         int r0, int col, int n_rows, int k_max, int F,
+                                         float (&s)[UNION_ROWS]) {
+#pragma unroll
+  for (int r = 0; r < UNION_ROWS; ++r) s[r] = 0.f;
+  const float* tile = blocks + (static_cast<size_t>(br) * k_max * B + r0) * B;
+  const int* crow = cols + static_cast<size_t>(br) * k_max;
+  bool bad = false;
+  for (int kk = 0; kk < k_max; ++kk, tile += B * B) {
+    const int c = __ldg(crow + kk);
+    if (static_cast<unsigned>(c) >= static_cast<unsigned>(n_rows)) {
+      bad = true;
+      continue;
+    }
+    const TX* xs = x + c * B * F + col;
+    float xv[B];
+#pragma unroll
+    for (int jj = 0; jj < B; ++jj) xv[jj] = load<kL2>(xs + jj * F);
+#pragma unroll
+    for (int jj = 0; jj < B; ++jj)
+#pragma unroll
+      for (int r = 0; r < UNION_ROWS; ++r) s[r] = fmaf(__ldg(tile + r * B + jj), xv[jj], s[r]);
+  }
+  if (bad) {
+#pragma unroll
+    for (int r = 0; r < UNION_ROWS; ++r) s[r] = __int_as_float(0x7fc00000);
+  }
+}
+
+template <int B, typename KT>
 __global__ void __launch_bounds__(UNION_THREADS, UNION_MIN_BLOCKS)
 cheb_union_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
                   const float* __restrict__ f, const float* __restrict__ coeffs,
-                  KT* ta, KT* tb, float* __restrict__ out, int n_rows, int k_max,
-                  int B, int F, int eta, int order, int f_tile, float inv_alpha,
-                  float two_inv_alpha) {
+                  KT* ta, KT* tb, float* __restrict__ out, int n_rows, int k_max, int F,
+                  int eta, int order, int f_tile, float inv_alpha, float two_inv_alpha) {
+  constexpr int EG = UNION_ACC / B;     // multipliers per group
+  constexpr int H = B / UNION_ROWS;     // threads per strip
   cg::grid_group grid = cg::this_grid();
-  const long N = static_cast<long>(n_rows) * B;
-  const long n_threads = static_cast<long>(gridDim.x) * blockDim.x;
-  const long tid = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int ncoef = order + 1;
+  const size_t nf = static_cast<size_t>(n_rows) * B * F;
 
-  for (int j0 = 0; j0 < eta; j0 += UNION_ETA) {
-    const int ne = min(UNION_ETA, eta - j0);
-    const float* cj = coeffs + static_cast<long>(j0) * ncoef;
-    for (long f0 = 0; f0 < F; f0 += f_tile) {
-      const long fc = min(static_cast<long>(f_tile), F - f0);
-      const long n_el = N * fc;
-      float acc[UNION_EPT][UNION_ETA];
+  for (int j0 = 0; j0 < eta; j0 += EG) {
+    if (j0 > 0) grid.sync();  // this group rewrites ta/tb where the last one read
+    const int ne = min(EG, eta - j0);
+    const float* cj = coeffs + j0 * ncoef;
+    for (int f0 = 0; f0 < F; f0 += f_tile) {
+      // Lanes take neighbour columns of one (block row, row half).
+      const int fc = min(f_tile, F - f0);
+      const bool active = tid < n_rows * H * fc;
+      const int rest = active ? tid / fc : 0;
+      const int col = f0 + (active ? tid - rest * fc : 0);
+      const int br = rest / H;
+      const int r0 = (rest - br * H) * UNION_ROWS;
+      const int row0 = (br * B + r0) * F + col;  // element (br*B + r0, col)
+      float acc[UNION_ROWS][EG];
+      float s[UNION_ROWS];
 
       // k = 0, 1: T_1 = L f / a - f into the ping buffer; accumulators set.
+      if (active) {
+        strip_lx<B, false>(blocks, cols, f, br, r0, col, n_rows, k_max, F, s);
+        float c0[EG], c1[EG];
 #pragma unroll
-      for (int s = 0; s < UNION_EPT; ++s) {
-        const long e = tid + s * n_threads;
-        if (e < n_el) {
-          const long i = e / fc;
-          const long idx = i * F + f0 + (e - i * fc);
-          const float t0 = load<false>(f + idx);
-          const float t1 =
-              lx_elem<false>(blocks, cols, f, i, idx - i * F, n_rows, k_max, B, F) * inv_alpha - t0;
+        for (int j = 0; j < EG; ++j) {
+          c0[j] = j < ne ? 0.5f * __ldg(cj + j * ncoef) : 0.f;
+          c1[j] = j < ne ? __ldg(cj + j * ncoef + 1) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < UNION_ROWS; ++r) {
+          const int idx = row0 + r * F;
+          const float t0 = __ldg(f + idx);
+          const float t1 = s[r] * inv_alpha - t0;
           ta[idx] = from_f32<KT>(t1);
 #pragma unroll
-          for (int j = 0; j < UNION_ETA; ++j)
-            acc[s][j] = j < ne ? 0.5f * cj[j * ncoef] * t0 + cj[j * ncoef + 1] * t1 : 0.f;
+          for (int j = 0; j < EG; ++j) acc[r][j] = c0[j] * t0 + c1[j] * t1;
         }
       }
-      grid.sync();
 
       // k >= 2: even k reads T_{k-1} from ta and writes tb; odd k the
       // reverse. T_{k-2} is the destination itself (read, then overwritten
       // by the same thread), except at k = 2 where it is f.
       for (int k = 2; k <= order; ++k) {
+        grid.sync();
+        if (!active) continue;
         const KT* src1 = (k % 2 == 0) ? ta : tb;
         KT* dst = (k % 2 == 0) ? tb : ta;
+        strip_lx<B, true>(blocks, cols, src1, br, r0, col, n_rows, k_max, F, s);
+        float ck[EG];
 #pragma unroll
-        for (int s = 0; s < UNION_EPT; ++s) {
-          const long e = tid + s * n_threads;
-          if (e < n_el) {
-            const long i = e / fc;
-            const long idx = i * F + f0 + (e - i * fc);
-            const float lx = lx_elem<true>(blocks, cols, src1, i, idx - i * F, n_rows, k_max, B, F);
-            const float prev2 = (k == 2) ? load<false>(f + idx) : load<true>(dst + idx);
-            const float tn = two_inv_alpha * lx - 2.f * load<true>(src1 + idx) - prev2;
-            dst[idx] = from_f32<KT>(tn);
+        for (int j = 0; j < EG; ++j) ck[j] = j < ne ? __ldg(cj + j * ncoef + k) : 0.f;
 #pragma unroll
-            for (int j = 0; j < UNION_ETA; ++j)
-              if (j < ne) acc[s][j] += __ldg(cj + j * ncoef + k) * tn;
-          }
+        for (int r = 0; r < UNION_ROWS; ++r) {
+          const int idx = row0 + r * F;
+          const float prev2 = (k == 2) ? load<false>(f + idx) : load<true>(dst + idx);
+          const float tn = two_inv_alpha * s[r] - 2.f * load<true>(src1 + idx) - prev2;
+          dst[idx] = from_f32<KT>(tn);
+#pragma unroll
+          for (int j = 0; j < EG; ++j) acc[r][j] = fmaf(ck[j], tn, acc[r][j]);
         }
-        grid.sync();
       }
 
+      if (active) {
 #pragma unroll
-      for (int s = 0; s < UNION_EPT; ++s) {
-        const long e = tid + s * n_threads;
-        if (e < n_el) {
-          const long i = e / fc;
-          const long idx = i * F + f0 + (e - i * fc);
+        for (int r = 0; r < UNION_ROWS; ++r)
 #pragma unroll
-          for (int j = 0; j < UNION_ETA; ++j)
-            if (j < ne) out[static_cast<long>(j0 + j) * N * F + idx] = acc[s][j];
-        }
+          for (int j = 0; j < EG; ++j)
+            if (j < ne) out[(j0 + j) * nf + row0 + r * F] = acc[r][j];
       }
-      grid.sync();  // the next chunk or eta group reuses ta
+      // No barrier: the next pass writes other columns of ta/tb and out.
     }
   }
 }
@@ -227,23 +289,26 @@ cudaError_t launch_step(const void* blocks, const void* cols, const void* t1, co
   return cudaGetLastError();
 }
 
-template <typename KT>
+template <int B, typename KT>
 cudaError_t launch_union(const void* blocks, const void* cols, const void* f,
                          const void* coeffs, void* ta, void* tb, void* out, int n_rows,
-                         int k_max, int B, int F, int eta, int order, int f_tile,
-                         float inv_alpha, float two_inv_alpha, cudaStream_t stream) {
-  int device = 0, n_sm = 0, per_sm = 0;
+                         int k_max, int F, int eta, int order, int f_tile, float inv_alpha,
+                         float two_inv_alpha, cudaStream_t stream) {
+  static int per_sm = 0;  // resident blocks per SM: a property of the build
+  int device = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cheb_union_kernel<KT>,
-                                                      UNION_THREADS, 0);
-  if (err != cudaSuccess) return err;
-  const long n_el = static_cast<long>(n_rows) * B * f_tile;
-  const long per_block = static_cast<long>(UNION_THREADS) * UNION_EPT;
-  const long want = (n_el + per_block - 1) / per_block;
-  // Every block must be resident at once for grid.sync(); a chunk that
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cheb_union_kernel<B, KT>,
+                                                        UNION_THREADS, 0);
+    if (err != cudaSuccess) return err;
+  }
+  if (f_tile > F) f_tile = F;
+  const long threads = static_cast<long>(n_rows) * (B / UNION_ROWS) * f_tile;
+  const long want = (threads + UNION_THREADS - 1) / UNION_THREADS;
+  // Every block must be resident at once for grid.sync(); a pass that
   // needs more threads than the card holds is refused, not truncated.
   if (want > static_cast<long>(per_sm) * n_sm) return cudaErrorCooperativeLaunchTooLarge;
   const float* blocks_p = static_cast<const float*>(blocks);
@@ -254,13 +319,27 @@ cudaError_t launch_union(const void* blocks, const void* cols, const void* f,
   KT* tb_p = static_cast<KT*>(tb);
   float* out_p = static_cast<float*>(out);
   void* args[] = {&blocks_p, &cols_p, &f_p, &coeffs_p, &ta_p, &tb_p, &out_p,
-                  &n_rows, &k_max, &B, &F, &eta, &order, &f_tile, &inv_alpha,
-                  &two_inv_alpha};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cheb_union_kernel<KT>),
+                  &n_rows, &k_max, &F, &eta, &order, &f_tile, &inv_alpha, &two_inv_alpha};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cheb_union_kernel<B, KT>),
                                     dim3(static_cast<unsigned>(want)), dim3(UNION_THREADS),
                                     args, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <int B>
+cudaError_t launch_union_b(const void* blocks, const void* cols, const void* f,
+                           const void* coeffs, void* ta, void* tb, int krylov_dtype, void* out,
+                           int n_rows, int k_max, int F, int eta, int order, int f_tile,
+                           float inv_alpha, float two_inv_alpha, cudaStream_t stream) {
+  if (krylov_dtype == 0)
+    return launch_union<B, float>(blocks, cols, f, coeffs, ta, tb, out, n_rows, k_max, F, eta,
+                                  order, f_tile, inv_alpha, two_inv_alpha, stream);
+  if (krylov_dtype == 1)
+    return launch_union<B, __nv_bfloat16>(blocks, cols, f, coeffs, ta, tb, out, n_rows, k_max,
+                                          F, eta, order, f_tile, inv_alpha, two_inv_alpha,
+                                          stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -288,17 +367,18 @@ int cheb_step_launch(const void* blocks, int blocks_dtype, const void* cols, con
   return cudaErrorInvalidValue;
 }
 
+// B is a template parameter of the union kernel: 8 and 16 are built.
 int cheb_union_launch(const void* blocks, const void* cols, const void* f, const void* coeffs,
                       void* ta, void* tb, int krylov_dtype, void* out, int n_rows, int k_max,
                       int B, int F, int eta, int order, int f_tile, float inv_alpha,
                       float two_inv_alpha, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (krylov_dtype == 0)
-    return launch_union<float>(blocks, cols, f, coeffs, ta, tb, out, n_rows, k_max, B, F, eta,
-                               order, f_tile, inv_alpha, two_inv_alpha, s);
-  if (krylov_dtype == 1)
-    return launch_union<__nv_bfloat16>(blocks, cols, f, coeffs, ta, tb, out, n_rows, k_max, B,
-                                       F, eta, order, f_tile, inv_alpha, two_inv_alpha, s);
+  if (B == 8)
+    return launch_union_b<8>(blocks, cols, f, coeffs, ta, tb, krylov_dtype, out, n_rows, k_max,
+                             F, eta, order, f_tile, inv_alpha, two_inv_alpha, s);
+  if (B == 16)
+    return launch_union_b<16>(blocks, cols, f, coeffs, ta, tb, krylov_dtype, out, n_rows,
+                              k_max, F, eta, order, f_tile, inv_alpha, two_inv_alpha, s);
   return cudaErrorInvalidValue;
 }
 

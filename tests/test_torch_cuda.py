@@ -52,16 +52,23 @@ def test_step_kernel_matches_plain(cuda_device, block, f, dtype, first):
 
 
 @pytest.mark.parametrize("krylov", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("eta,order,f_tile", [(1, 1, None), (3, 12, 5), (10, 20, None)])
-def test_union_kernel_matches_plain(cuda_device, krylov, eta, order, f_tile):
+@pytest.mark.parametrize(
+    "block,f,eta,order,f_tile",
+    [(8, 40, 1, 1, None), (8, 40, 3, 12, 5), (8, 40, 10, 20, None), (16, 40, 3, 12, None),
+     (8, 100, 3, 12, 32), (16, 100, 5, 20, 32), (16, 40, 10, 20, None)],
+    ids=["order1", "ftile5", "eta10", "b16", "ragged", "b16-ragged", "b16-eta10"],
+)
+def test_union_kernel_matches_plain(cuda_device, krylov, block, f, eta, order, f_tile):
     # Laplacian tiles: the recurrence is stable only for a spectrum inside
     # [0, lmax]; on random tiles rounding differences grow with the order.
+    # f_tile=32 at F = 100 is three full passes and a ragged one; eta = 10
+    # at B = 16 is three multiplier groups of 4.
     g = tgraph.random_sensor_graph(torch.Generator().manual_seed(order), 256, 0.1, 0.11,
                                    device=cuda_device)
     lmax = float(g.lmax_bound())
-    bell = tref.bsr_from_dense(g.laplacian(), 8)
+    bell = tref.bsr_from_dense(g.laplacian(), block)
     blocks, cols = bell.blocks, bell.cols
-    f = torch.randn(256, 40, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    f = torch.randn(256, f, generator=torch.Generator().manual_seed(1)).to(cuda_device)
     coeffs = np.random.RandomState(order).randn(eta, order + 1) / (1 + np.arange(order + 1))
     before = cheb_bsr.cheb_union_cuda.launches
     got = cheb_bsr.cheb_union_cuda(blocks, cols, f, coeffs=coeffs, lmax=lmax,
@@ -73,6 +80,18 @@ def test_union_kernel_matches_plain(cuda_device, krylov, eta, order, f_tile):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:
         assert float((got - want).abs().max() / want.abs().max()) < 16 * 2.0**-8
+
+
+def test_union_kernel_refuses_an_unbuilt_block_size(cuda_device):
+    g = tgraph.random_sensor_graph(torch.Generator().manual_seed(0), 256, 0.1, 0.11,
+                                   device=cuda_device)
+    bell = tref.bsr_from_dense(g.laplacian(), 32)
+    f = torch.randn(256, 4, device=cuda_device)
+    before = cheb_bsr.cheb_union_cuda.launches
+    with pytest.raises(ValueError, match="built for B"):
+        cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, f, coeffs=[[1.0, 0.5]],
+                                 lmax=float(g.lmax_bound()))
+    assert cheb_bsr.cheb_union_cuda.launches == before
 
 
 def test_bsr_backend_on_cuda_reaches_only_the_kernels(cuda_device):

@@ -194,27 +194,57 @@ def test_wrappers_check_operands():
 
 # ---- the Hopper tiling decision ------------------------------------------
 
-CAPACITY = 132 * 1024 * 2  # H100 SXM: 132 SMs x 1024 resident threads x 2 elements
+THREADS = 132 * 512  # H100 SXM: 132 SMs x 512 resident threads, 8 rows of a column each
 
 
 def test_select_tiling_fuses_while_one_column_fits_the_resident_grid():
-    """The docstring's rule: fuse iff the signal is f32 and
-    N <= sm_count * 1024 * 2; f_tile is the columns one pass holds."""
-    assert autotune.union_resident_elems() == CAPACITY
+    """The docstring's rule: fuse iff the signal is f32, B is 8 or 16 and
+    N / 8 <= sm_count * 512; f_tile is the columns one pass holds, rounded
+    down to a multiple of 32 when the pass does not hold all of F."""
+    assert autotune.union_resident_threads() == THREADS
     t = autotune.select_tiling(8192, 256, 5, 1024, 10, 8)
-    assert t.fuse and t.f_tile == CAPACITY // 8192 == 33
+    assert t.fuse and THREADS // 1024 == 66 and t.f_tile == 64
     assert t.pass_bytes <= autotune.L2_BUDGET_BYTES
+    t = autotune.select_tiling(8192, 1, 5, 1024, 10, 8)
+    assert t.fuse and t.f_tile == 1
+    # One pass holds all of F: no rounding.
+    t = autotune.select_tiling(8192, 40, 5, 1024, 10, 8)
+    assert t.fuse and t.f_tile == 40
     t = autotune.select_tiling(504, 1, 1, 63, 12, 8)
     assert t.fuse and t.f_tile == 1
-    t = autotune.select_tiling(CAPACITY, 4, 1, CAPACITY // 8, 4, 8)
-    assert t.fuse and t.f_tile == 1
-    t = autotune.select_tiling(CAPACITY + 8, 4, 1, CAPACITY // 8 + 1, 4, 8)
-    assert not t.fuse and t.f_tile == 4
+    # B = 16: two threads a strip, so the same 1024 threads a column.
+    t = autotune.select_tiling(8192, 256, 5, 512, 10, 16)
+    assert t.fuse and t.f_tile == 64
     t = autotune.select_tiling(8192, 256, 5, 1024, 10, 8, torch.bfloat16)
     assert not t.fuse and t.f_tile == autotune.STEP_F_TILE
     # A smaller card holds less: the decision follows its SM count.
     t = autotune.select_tiling(8192, 256, 5, 1024, 10, 8, sm_count=114)
-    assert t.fuse and t.f_tile == 114 * 2048 // 8192
+    assert t.fuse and 114 * 512 // 1024 == 57 and t.f_tile == 32
+
+
+@pytest.mark.parametrize(
+    "n_rows,block,fuse",
+    [(THREADS, 8, True), (THREADS + 1, 8, False), (THREADS // 2, 16, True),
+     (THREADS // 2 + 1, 16, False), (64, 32, False), (64, 4, False)],
+    ids=["b8-full", "b8-over", "b16-full", "b16-over", "b32", "b4"],
+)
+def test_select_tiling_fuses_only_what_the_kernel_holds(n_rows, block, fuse):
+    """Past the resident grid, or at a B the kernel is not built for, the
+    apply takes the stepwise chain with the step kernel's slab."""
+    t = autotune.select_tiling(n_rows * block, 4, 1, n_rows, 4, block)
+    assert t.fuse == fuse
+    assert t.f_tile == (1 if fuse else 4)
+
+
+@pytest.mark.parametrize(
+    "f,f_tile,eta,order,block,want",
+    [(256, 64, 5, 20, 8, 4 * 19), (1, 1, 1, 20, 8, 19), (100, 32, 10, 20, 16, 3 * 4 * 19 + 2),
+     (40, 64, 9, 1, 8, 1)],
+    ids=["deploy", "paper", "ragged-b16", "order1"],
+)
+def test_union_grid_barriers(f, f_tile, eta, order, block, want):
+    """M - 1 barriers per pass and multiplier group, one between groups."""
+    assert autotune.union_grid_barriers(f, f_tile, eta, order, block) == want
 
 
 def test_select_tiling_l2_budget_limits_the_pass():
@@ -228,3 +258,20 @@ def test_select_tiling_l2_budget_limits_the_pass():
 
 def test_f_tile_table_starts_empty():
     assert autotune._F_TILE_TABLE == {}
+
+
+def test_parse_ptxas_report_reads_registers_and_spills():
+    from repro_torch.kernels._build import parse_ptxas_report
+
+    union = "_ZN12_GLOBAL__N_117cheb_union_kernelILi8EfEEvPKfPKiS3_S3_PT0_S6_Pfiiiiiiff"
+    text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{union}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {union}",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 436 bytes cmem[0]",
+    ])
+    assert parse_ptxas_report(text) == {
+        union: {"registers": 128, "spill_stores": 8, "spill_loads": 4}
+    }
+    assert parse_ptxas_report("") == {}
