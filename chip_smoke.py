@@ -9,12 +9,14 @@ Phases, each printing its own lines:
 2. build: compiles ``src/repro_torch/kernels/csrc/cheb_bsr.cu`` with
    ``nvcc`` for sm_90a (first use), reports how long it took and each
    kernel's registers and spills from ``ptxas -v``, and fails if a union
-   kernel spills;
+   kernel or a step strip kernel spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on random Block-ELL operands at B = 8 and 16 (random tiles for the
-   step, random-graph Laplacian tiles for the union) and on the deployment
-   operands, in f32 and bf16; the union also at F = 100 (a ragged last
-   pass) on the deployment graph tiled at B = 8 and at B = 16;
+   step, random-graph Laplacian tiles for the union), the step also at
+   B = 4 (its generic kernel), and on the deployment operands, in f32 and
+   bf16; the step also at F = 100 in slabs of 32 (a ragged last slab), the
+   union at F = 100 (a ragged last pass) on the deployment graph tiled at
+   B = 8 and at B = 16;
 4. main path: with the launch counts set to 0, the paper-shape quickstart
    (``repro_torch.quickstart.main``: N = 500, Tikhonov M = 20, dense and
    bsr fused and stepwise, heat smoothing, SSL) and the deployment shape
@@ -25,10 +27,14 @@ Phases, each printing its own lines:
 5. timing at the deployment shape: median CUDA-event milliseconds over 15
    runs after 3 warm-up runs, for the applies and for each kernel beside
    its plain version, with each kernel's bound from the bytes and
-   operations of this run's inputs; the union kernel's device time from
+   operations of this run's inputs; each kernel's device time from
    ``torch.profiler`` (the event time also holds the wrapper's host
-   work), and its cost per order and per launch from one 64-column pass
-   at M = 2 and M = 20.
+   work); the union kernel's cost per order and per launch from one
+   64-column pass at M = 2 and M = 20; one bf16 step (the signal dtype
+   only the stepwise route serves); and, as the step kernel's yardstick,
+   one ``torch.addmm(t2, S, t1)`` with ``S = L - alpha I`` stored as a
+   sparse BSR tensor (CSR where the card refuses BSR), a library call the
+   port never makes.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -111,18 +117,20 @@ def main() -> int:
     load_library()
     say(f"[build] nvcc sm_90a build+load {time.perf_counter() - t0:.1f} s")
     ptxas = parse_ptxas_report(build_report())
-    union_builds = 0
+    builds = {"cheb_union_kernel": 0, "cheb_step_strip_kernel": 0}
     for name, info in sorted(ptxas.items()):
-        m = re.search(r"(cheb_(?:union|step)_kernel)I(.*?)EEv", name)
+        m = re.search(r"(cheb_(?:union|step|step_strip)_kernel)I(.*?)EEv", name)
         label = f"{m.group(1)}<{m.group(2)}>" if m else name
         say(f"[build] ptxas {label}: {info['registers']} registers, spill stores "
             f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
-        if "cheb_union_kernel" in name:
-            union_builds += 1
+        if m and m.group(1) in builds:
+            builds[m.group(1)] += 1
             require(info["spill_stores"] == 0 and info["spill_loads"] == 0,
                     f"{label} spills registers")
-    require(union_builds == 4, f"ptxas reported {union_builds} union kernels (want B 8, 16 x "
-            "f32, bf16 Krylov)")
+    require(builds["cheb_union_kernel"] == 4, f"ptxas reported {builds['cheb_union_kernel']} "
+            "union kernels (want B 8, 16 x f32, bf16 Krylov)")
+    require(builds["cheb_step_strip_kernel"] == 8, f"ptxas reported "
+            f"{builds['cheb_step_strip_kernel']} step strip kernels (want B 8, 16 x 4 dtypes)")
 
     # ---- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -134,12 +142,13 @@ def main() -> int:
         cols = torch.stack([torch.randperm(n_rows, generator=gen)[:k_max] for _ in range(n_rows)])
         return scale * rand(n_rows, k_max, block, block), cols.to(torch.int32).to(dev)
 
-    def check_step(blocks, cols, t1, t2, alpha, where):
+    def check_step(blocks, cols, t1, t2, alpha, where, f_tile=None):
         worst = 0.0
         for dtype, tol in ((torch.float32, F32_STEP_TOL), (torch.bfloat16, BF16_STEP_TOL)):
             b, x1, x2 = blocks.to(dtype), t1.to(dtype), t2.to(dtype)
             for first in (True, False):
-                got = cheb_bsr.cheb_step_cuda(b, cols, x1, x2, alpha=alpha, first=first)
+                got = cheb_bsr.cheb_step_cuda(b, cols, x1, x2, alpha=alpha, first=first,
+                                              f_tile=f_tile)
                 want = tref.cheb_step_ref(b, cols, x1, x2, alpha, first=first)
                 err = (got.float() - want.float()).abs()
                 ok = bool((err <= tol + tol * want.float().abs()).all())
@@ -188,6 +197,9 @@ def main() -> int:
         blocks, cols, lmax_r = laplacian_bell(n_rows * block, block, seed=block)
         coeffs = torch.randn(3, 13, generator=gen).double().numpy() / (1 + torch.arange(13)).numpy()
         check_union(blocks, cols, t1, coeffs, lmax_r, f"random-graph B={block} F={f}")
+    # B = 4: the step's generic kernel (the strip kernel is built for 8 and 16).
+    blocks, cols = random_bell(64, 4, 4)
+    check_step(blocks, cols, rand(256, 33), rand(256, 33), 3.7, "random B=4 F=33 (generic)")
 
     # Deployment operands, built on the card.
     n_scale = math.sqrt(PAPER_N / DEPLOY_N)
@@ -214,6 +226,9 @@ def main() -> int:
     # F = 100: the default tiling takes a pass of 64 columns and a ragged
     # one of 36, at B = 8 and on the same graph tiled at B = 16.
     f_ragged = f_deploy[:, :100].contiguous()
+    step_err = max(step_err, check_step(bell.blocks, bell.cols, f_ragged,
+                                        t2_deploy[:, :100].contiguous(), alpha,
+                                        "deploy F=100 f_tile=32", f_tile=32))
     union_err = max(union_err, check_union(bell.blocks, bell.cols, f_ragged, filt.coeffs, lmax,
                                            "deploy B=8 F=100"))
     bell16 = filt.prepare_backend("bsr", block_size=16).bell
@@ -299,6 +314,28 @@ def main() -> int:
         bell.blocks, bell.cols, fp, t2_deploy, alpha=alpha))
     step_plain_ms = median_ms(lambda: tref.cheb_step_ref(
         bell.blocks, bell.cols, fp, t2_deploy, alpha))
+    fp16, t2_16 = fp.bfloat16(), t2_deploy.bfloat16()
+    step_bf16_ms = median_ms(lambda: cheb_bsr.cheb_step_cuda(
+        bell.blocks, bell.cols, fp16, t2_16, alpha=alpha))
+
+    # The step kernel's yardstick: both step variants have cb / ca = -alpha,
+    # so a step is addmm(t2, S, t1, beta=cc, alpha=ca) with S = L - alpha I.
+    ca, _, cc = tref.step_constants(alpha, False)
+    s_dense = tref.bsr_to_dense(bell) - alpha * torch.eye(n_pad, device=dev)
+    try:
+        s_lib, lib_format = s_dense.to_sparse_bsr((BLOCK, BLOCK)), "bsr"
+        torch.addmm(t2_deploy, s_lib, fp, beta=cc, alpha=ca)
+    except (RuntimeError, NotImplementedError) as exc:
+        say(f"[timing] addmm on sparse BSR refused ({type(exc).__name__}: "
+            f"{str(exc).splitlines()[0]}); timing CSR instead")
+        s_lib, lib_format = s_dense.to_sparse_csr(), "csr"
+    del s_dense
+    lib_out = torch.addmm(t2_deploy, s_lib, fp, beta=cc, alpha=ca)
+    want = tref.cheb_step_ref(bell.blocks, bell.cols, fp, t2_deploy, alpha)
+    lib_err = (lib_out - want).abs()
+    require(bool((lib_err <= F32_STEP_TOL + F32_STEP_TOL * want.abs()).all()),
+            f"addmm yardstick disagrees with the plain step: {float(lib_err.max()):.3e}")
+    step_lib_ms = median_ms(lambda: torch.addmm(t2_deploy, s_lib, fp, beta=cc, alpha=ca))
     say("[timing] deployment applies, median ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in apply_ms.items()))
 
@@ -309,13 +346,15 @@ def main() -> int:
         for _ in range(10):
             cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, fp, coeffs=filt.coeffs, lmax=lmax)
             cheb_bsr.cheb_step_cuda(bell.blocks, bell.cols, fp, t2_deploy, alpha=alpha)
+            cheb_bsr.cheb_step_cuda(bell.blocks, bell.cols, fp16, t2_16, alpha=alpha)
         torch.cuda.synchronize()
     device_ms = {}
     for ev in prof.key_averages():
-        for name in ("cheb_union_kernel", "cheb_step_kernel"):
+        for name in ("cheb_union_kernel", "cheb_step_strip_kernel"):
             if name in ev.key and ev.count:
                 us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-                device_ms[name] = us / ev.count / 1e3
+                label = name + (" bf16" if "bfloat16" in ev.key else "")
+                device_ms[label] = us / ev.count / 1e3
     # One 64-column pass at M = 2 and 20: the slope is the cost of an order
     # (its gathers and its grid barrier), the rest the cost of a launch.
     f64 = fp[:, :64].contiguous()
@@ -350,7 +389,9 @@ def main() -> int:
     say(f"[timing] cheb_union kernel {union_ms:.3f} ms (plain {union_plain_ms:.3f}, bound "
         f"{ub:.4f} by {ub_by}: {union_bytes / 1e6:.1f} MB, {union_flops / 1e9:.2f} GFLOP); "
         f"cheb_step kernel {step_ms:.3f} ms (plain {step_plain_ms:.3f}, bound {sb:.4f} by "
-        f"{sb_by}: {step_bytes / 1e6:.1f} MB, {step_flops / 1e9:.3f} GFLOP)")
+        f"{sb_by}: {step_bytes / 1e6:.1f} MB, {step_flops / 1e9:.3f} GFLOP; bf16 signal "
+        f"{step_bf16_ms:.3f}; library addmm on sparse {lib_format} {step_lib_ms:.3f}, "
+        f"max|addmm-plain| {float(lib_err.max()):.3e} (tol {F32_STEP_TOL:g}))")
     say(smi)
 
     kernels = [
@@ -368,9 +409,11 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/cheb_bsr.cu",
             "replaces": "src/repro/kernels/cheb_bsr.py:85",
             "launches": main_step, "launches_per_apply": s2 - s1, "max_abs_err": step_err,
-            "ms": step_ms, "device_ms": device_ms.get("cheb_step_kernel"),
+            "ms": step_ms, "device_ms": device_ms.get("cheb_step_strip_kernel"),
             "plain_ms": step_plain_ms,
-            "bound_ms": sb, "bound_by": sb_by, "library_ms": None,
+            "bound_ms": sb, "bound_by": sb_by, "library_ms": step_lib_ms,
+            "library_call": f"torch.addmm on sparse {lib_format}", "bf16_ms": step_bf16_ms,
+            "bf16_device_ms": device_ms.get("cheb_step_strip_kernel bf16"),
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -68,6 +68,12 @@ def _cuda_ready(tensors) -> None:
             raise ValueError("CUDA kernel operands must be contiguous")
 
 
+def _check_index_range(n: int, f: int) -> None:
+    """The kernels index an (N, F) signal with 32-bit integers."""
+    if n * f >= 2**31:
+        raise ValueError(f"N * F = {n * f} must be below 2**31 (32-bit indices)")
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
@@ -95,6 +101,10 @@ def cheb_step_cuda(
       f_tile: signal columns per launch slab (default ``min(F, 128)``).
 
     Returns: (N, F) ``T_k`` in ``t1.dtype``.
+
+    On CUDA tensors ``B`` = 8 and 16 take the strip kernel (``B`` a
+    template parameter, 16-byte aligned tiles), any other ``B`` the generic
+    kernel; ``N * F`` must be below 2**31, else ``ValueError``.
     """
     n_rows, k_max, b, f = _check_operands(blocks, cols, {"t1": t1, "t2": t2})
     if t2.dtype != t1.dtype:
@@ -108,6 +118,7 @@ def cheb_step_cuda(
         raise ValueError(f"unsupported device {t1.device}")
     bcode = _dtype_code(blocks, "blocks")
     tcode = _dtype_code(t1, "t1")
+    _check_index_range(n_rows * b, f)
     _cuda_ready((blocks, cols, t1, t2))
     ca, cb, cc = ref.step_constants(alpha, first)
     out = torch.empty_like(t1)
@@ -180,10 +191,9 @@ def cheb_union_cuda(
             f"the fused kernel is built for B in {UNION_BLOCKS}, got B = {b}; "
             "use the stepwise chain (fuse=False)"
         )
-    _cuda_ready((blocks, cols, f))
     n = n_rows * b
-    if n * fdim >= 2**31:
-        raise ValueError(f"N * F = {n * fdim} must be below 2**31 (32-bit indices)")
+    _check_index_range(n, fdim)
+    _cuda_ready((blocks, cols, f))
     if f_tile is None:
         tiling = select_tiling(n, fdim, eta, n_rows, k_max, b, f.dtype,
                                krylov_dtype=krylov_dtype, sm_count=device_sm_count(f.device))

@@ -3,9 +3,10 @@
 // Two kernels, each the counterpart of a Pallas TPU kernel in
 // src/repro/kernels/cheb_bsr.py:
 //
-// * cheb_step_kernel replaces cheb_step_pallas (_cheb_step_kernel, :40;
-//   pallas_call :128). One eq. 9 step, out = ca*(L t1) + cb*t1 + cc*t2,
-//   L*t1 accumulated in f32 and cast once on store.
+// * cheb_step_strip_kernel (B = 8, 16) and cheb_step_kernel (any other B)
+//   replace cheb_step_pallas (_cheb_step_kernel, :40; pallas_call :128).
+//   One eq. 9 step, out = ca*(L t1) + cb*t1 + cc*t2, L*t1 accumulated in
+//   f32 and cast once on store; t2 is not read when cc == 0.
 // * cheb_union_kernel replaces cheb_union_pallas (_cheb_union_kernel,
 //   :159; pallas_call :331). The whole union apply, eq. 9 + eq. 11, in one
 //   launch: T_0 = f, T_1 = L f / a - f, T_k = (2/a) L T_{k-1} - 2 T_{k-1}
@@ -22,14 +23,35 @@
 // What it loses against that bound is how often each gathered value and
 // each tile is re-read from L2, and the grid barriers between orders.
 //
-// What the step kernel's design does about it, simply (correct first;
-// wgmma, TMA and clusters are later work): one thread owns one output
-// element (row i, signal column f) and runs the whole gather for it with
-// FMAs in f32: no tensor cores, so no TF32 and no minimum tile (the
-// quickstart shape is F = 1, B = 8). Neighbour threads take neighbour
-// columns, so the gathered t1 reads and the stores are coalesced when F is
-// wide; the tile row is a broadcast. Hopper has no scalar prefetch: each
-// thread loads its block-row's column ids itself (they stay in L1).
+// What the step kernel's design does about it: it keeps the L2 traffic
+// near the least HBM traffic by building around the strip, the B rows of
+// one block row in one signal column.
+//
+// * One thread owns one strip (block row br, column col). For each of the
+//   row's k_max tiles it reads the B gathered values t1[c*B + jj, col] into
+//   registers once and runs B independent FMA chains, one per row, in f32:
+//   no tensor cores, so no TF32 and no minimum tile (the quickstart shape is
+//   F = 1, B = 8). Each gathered value is read from L2 once per strip, not
+//   once per row: at the deployment shape (N = 8192, F = 256, B = 8,
+//   k_max = 10) 84 MB of gathers a step instead of 671 MB.
+// * B is a template parameter, built for 8 and 16: every loop over rows
+//   and tile columns is unrolled and the index math is 32-bit (the wrapper
+//   refuses N * F >= 2^31). Each tile row is read as 16-byte loads that
+//   every lane of a warp shares (one address, a broadcast), not one 4-byte
+//   load per FMA.
+// * Launch: blockIdx.y picks a slab of f_tile signal columns (the ragged
+//   last slab is narrower); within a slab thread t takes block row t / fc
+//   and column t % fc, so lanes take neighbour columns of one block row and
+//   each gathered row is one coalesced 128-byte read (f32) once the slab is
+//   a multiple of 32 wide (f_tile = 128 by default). A 256-thread block
+//   then covers 2 block rows x 128 columns. A narrower slab (F = 1) lays
+//   the warp across neighbour block rows instead: no lane idles, but the
+//   reads are no longer coalesced; that shape is launch-bound anyway.
+// * Any other B (4, 32, the 128 x 128 tiles of the reference's slow test)
+//   takes the generic kernel: one thread per output element with a run-time
+//   B, each gathered value read once per row.
+// Hopper has no scalar prefetch: each thread loads its block row's column
+// ids itself (they stay in L1).
 //
 // The union kernel is built around the strip, B rows of one signal
 // column inside one block row:
@@ -73,6 +95,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -148,6 +172,81 @@ cheb_step_kernel(const TB* __restrict__ blocks, const int* __restrict__ cols,
     const long idx = i * F + col;
     const float lx = lx_elem<false>(blocks, cols, t1, i, col, n_rows, k_max, B, F);
     float v = ca * lx + cb * load<false>(t1 + idx);
+    if (cc != 0.f) v += cc * load<false>(t2 + idx);
+    out[idx] = from_f32<TT>(v);
+  }
+}
+
+// One tile row of B values as float, read as 16-byte loads (a bf16 value
+// is the upper half of an f32 one). The wrapper's operands are contiguous
+// and the launcher refuses tiles that are not 16-byte aligned.
+template <int B>
+__device__ __forceinline__ void tile_row(const float* p, float (&w)[B]) {
+#pragma unroll
+  for (int q = 0; q < B / 4; ++q) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + q);
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
+  }
+}
+template <int B>
+__device__ __forceinline__ void tile_row(const __nv_bfloat16* p, float (&w)[B]) {
+#pragma unroll
+  for (int q = 0; q < B / 8; ++q) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      w[8 * q + 2 * e] = __uint_as_float(u[e] << 16);
+      w[8 * q + 2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
+    }
+  }
+}
+
+template <int B, typename TB, typename TT>
+__global__ void __launch_bounds__(STEP_THREADS)
+cheb_step_strip_kernel(const TB* __restrict__ blocks, const int* __restrict__ cols,
+                       const TT* __restrict__ t1, const TT* __restrict__ t2,
+                       TT* __restrict__ out, int n_rows, int k_max, int F, int f_tile,
+                       float ca, float cb, float cc) {
+  const int f0 = blockIdx.y * f_tile;
+  const int fc = min(f_tile, F - f0);
+  const int tid = blockIdx.x * STEP_THREADS + threadIdx.x;
+  if (tid >= n_rows * fc) return;
+  const int br = tid / fc;
+  const int col = f0 + (tid - br * fc);
+  const int* crow = cols + static_cast<size_t>(br) * k_max;
+  const TB* tile = blocks + static_cast<size_t>(br) * k_max * B * B;
+  float s[B];
+#pragma unroll
+  for (int r = 0; r < B; ++r) s[r] = 0.f;
+  bool bad = false;
+  for (int kk = 0; kk < k_max; ++kk, tile += B * B) {
+    const int c = __ldg(crow + kk);
+    if (static_cast<unsigned>(c) >= static_cast<unsigned>(n_rows)) {
+      bad = true;
+      continue;
+    }
+    const TT* xs = t1 + c * B * F + col;
+    float xv[B];
+#pragma unroll
+    for (int jj = 0; jj < B; ++jj) xv[jj] = load<false>(xs + jj * F);
+#pragma unroll
+    for (int r = 0; r < B; ++r) {
+      float w[B];
+      tile_row<B>(tile + r * B, w);
+#pragma unroll
+      for (int jj = 0; jj < B; ++jj) s[r] = fmaf(w[jj], xv[jj], s[r]);
+    }
+  }
+  const int row0 = br * B * F + col;  // element (br*B, col)
+#pragma unroll
+  for (int r = 0; r < B; ++r) {
+    const int idx = row0 + r * F;
+    float v = bad ? __int_as_float(0x7fc00000) : ca * s[r];
+    v += cb * load<false>(t1 + idx);
     if (cc != 0.f) v += cc * load<false>(t2 + idx);
     out[idx] = from_f32<TT>(v);
   }
@@ -274,10 +373,31 @@ cheb_union_kernel(const float* __restrict__ blocks, const int* __restrict__ cols
   }
 }
 
+template <int B, typename TB, typename TT>
+cudaError_t launch_step_strip(const void* blocks, const void* cols, const void* t1,
+                              const void* t2, void* out, int n_rows, int k_max, int F,
+                              int f_tile, float ca, float cb, float cc, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(blocks) % 16 != 0) return cudaErrorMisalignedAddress;
+  const int fc = f_tile < F ? f_tile : F;
+  const dim3 grid(static_cast<unsigned>((n_rows * fc + STEP_THREADS - 1) / STEP_THREADS),
+                  static_cast<unsigned>((F + f_tile - 1) / f_tile));
+  cheb_step_strip_kernel<B, TB, TT><<<grid, STEP_THREADS, 0, stream>>>(
+      static_cast<const TB*>(blocks), static_cast<const int*>(cols),
+      static_cast<const TT*>(t1), static_cast<const TT*>(t2), static_cast<TT*>(out), n_rows,
+      k_max, F, f_tile, ca, cb, cc);
+  return cudaGetLastError();
+}
+
 template <typename TB, typename TT>
 cudaError_t launch_step(const void* blocks, const void* cols, const void* t1, const void* t2,
                         void* out, int n_rows, int k_max, int B, int F, int f_tile,
                         float ca, float cb, float cc, cudaStream_t stream) {
+  if (B == 8)
+    return launch_step_strip<8, TB, TT>(blocks, cols, t1, t2, out, n_rows, k_max, F, f_tile,
+                                        ca, cb, cc, stream);
+  if (B == 16)
+    return launch_step_strip<16, TB, TT>(blocks, cols, t1, t2, out, n_rows, k_max, F, f_tile,
+                                         ca, cb, cc, stream);
   const long n_el = static_cast<long>(n_rows) * B * f_tile;
   const long want = (n_el + STEP_THREADS - 1) / STEP_THREADS;
   const dim3 grid(static_cast<unsigned>(want < 65535 ? want : 65535),
@@ -346,7 +466,8 @@ cudaError_t launch_union_b(const void* blocks, const void* cols, const void* f,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16. B = 8 and 16 take the strip kernel,
+// any other B the generic one.
 
 int cheb_step_launch(const void* blocks, int blocks_dtype, const void* cols, const void* t1,
                      const void* t2, void* out, int t_dtype, int n_rows, int k_max, int B,

@@ -36,19 +36,38 @@ def _operands(n_rows, k_max, block, f, device, seed=0):
     return [x.to(device) for x in (blocks, cols.to(torch.int32), t1, t2)]
 
 
-@pytest.mark.parametrize("block,f", [(8, 1), (8, 33), (16, 128)])
+@pytest.mark.parametrize(
+    "block,f,f_tile",
+    [(8, 1, 16), (8, 33, 16), (16, 128, 16), (4, 33, 16), (8, 100, 32), (16, 64, None)],
+    ids=["b8-f1", "b8-f33", "b16-f128", "b4-generic", "b8-ragged", "b16-f64"],
+)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("first", [False, True])
-def test_step_kernel_matches_plain(cuda_device, block, f, dtype, first):
+def test_step_kernel_matches_plain(cuda_device, block, f, f_tile, dtype, first):
+    # B = 8 and 16 take the strip kernel, B = 4 the generic one; F = 100
+    # with f_tile=32 is three full slabs and a ragged one of 4 columns.
     blocks, cols, t1, t2 = _operands(12, 3, block, f, cuda_device)
     blocks, t1, t2 = blocks.to(dtype), t1.to(dtype), t2.to(dtype)
     before = cheb_bsr.cheb_step_cuda.launches
-    got = cheb_bsr.cheb_step_cuda(blocks, cols, t1, t2, alpha=3.7, first=first, f_tile=16)
+    got = cheb_bsr.cheb_step_cuda(blocks, cols, t1, t2, alpha=3.7, first=first, f_tile=f_tile)
     torch.cuda.synchronize()
     assert cheb_bsr.cheb_step_cuda.launches == before + 1
     want = tref.cheb_step_ref(blocks, cols, t1, t2, 3.7, first=first)
     tol = 1e-5 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("block", [8, 4])
+def test_step_kernel_refuses_signals_past_32_bit_indices(cuda_device, block):
+    # Expanded views: N * F = 2**31 elements without allocating them.
+    n_rows, f = 2**20 // block, 2**11
+    blocks = torch.zeros(1, 1, block, block, device=cuda_device).expand(n_rows, 1, block, block)
+    cols = torch.zeros(1, 1, dtype=torch.int32, device=cuda_device).expand(n_rows, 1)
+    t = torch.zeros(1, 1, device=cuda_device).expand(n_rows * block, f)
+    before = cheb_bsr.cheb_step_cuda.launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        cheb_bsr.cheb_step_cuda(blocks, cols, t, t, alpha=2.0)
+    assert cheb_bsr.cheb_step_cuda.launches == before
 
 
 @pytest.mark.parametrize("krylov", [torch.float32, torch.bfloat16])

@@ -192,6 +192,16 @@ def test_wrappers_check_operands():
         cheb_bsr.cheb_union_cuda(blocks, cols, t1, coeffs=[[1.0]], lmax=4.0)
 
 
+@pytest.mark.parametrize("n,f,refused", [(2**20, 2**11 - 1, False), (2**20, 2**11, True),
+                                         (8, 2**28, True)])
+def test_kernels_refuse_signals_past_32_bit_indices(n, f, refused):
+    if refused:
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            cheb_bsr._check_index_range(n, f)
+    else:
+        cheb_bsr._check_index_range(n, f)
+
+
 # ---- the Hopper tiling decision ------------------------------------------
 
 THREADS = 132 * 512  # H100 SXM: 132 SMs x 512 resident threads, 8 rows of a column each
