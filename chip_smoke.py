@@ -16,7 +16,8 @@ Phases, each printing its own lines:
    B = 4 (its generic kernel), and on the deployment operands, in f32 and
    bf16; the step also at F = 100 in slabs of 32 (a ragged last slab), the
    union at F = 100 (a ragged last pass) on the deployment graph tiled at
-   B = 8 and at B = 16;
+   B = 8 and at B = 16, and at the solvers' gram shape (eta = 1, order
+   2M) on the deployment operands;
 4. main path: with the launch counts set to 0, the paper-shape quickstart
    (``repro_torch.quickstart.main``: N = 500, Tikhonov M = 20, dense and
    bsr fused and stepwise, heat smoothing, SSL) and the deployment shape
@@ -24,7 +25,19 @@ Phases, each printing its own lines:
    scaled by sqrt(500/N) to keep the paper's mean degree, F = 256 signals,
    the SGWT bank with eta = 5, M = 20) through ``GraphFilter.apply`` on
    bsr fused, bsr stepwise and dense; then the counts are read and checked;
-5. timing at the deployment shape: median CUDA-event milliseconds over 15
+5. solvers (``repro_torch.solvers`` and the solver-backed apps), with
+   the launch counts set to 0 before each solve and checked exactly after
+   it. Paper Sec. V-C shape (N = 500, the SGWT bank with eta = 4, M = 20,
+   mu = 2, on bsr): ISTA against FISTA (iterations to ISTA's best
+   objective in 150; FISTA-20 at least as good as ISTA-40), bsr against
+   dense, CG inverse filtering, Chebyshev-preconditioned CG, the
+   Chebyshev fixed-point inverse, the three apps, and one CG solve on the
+   stepwise route (the step kernel on the solver path); then each kernel
+   against its plain version at those solves' operands (one column; the
+   lasso bank, the gram and both fitted inverse series for the union).
+   Deployment shape: FISTA on a 256-column panel on bsr against dense,
+   and a Wiener solve on bsr against dense; then the peak device memory;
+6. timing at the deployment shape: median CUDA-event milliseconds over 15
    runs after 3 warm-up runs, for the applies and for each kernel beside
    its plain version, with each kernel's bound from the bytes and
    operations of this run's inputs; each kernel's device time from
@@ -34,7 +47,11 @@ Phases, each printing its own lines:
    only the stepwise route serves); and, as the step kernel's yardstick,
    one ``torch.addmm(t2, S, t1)`` with ``S = L - alpha I`` stored as a
    sparse BSR tensor (CSR where the card refuses BSR), a library call the
-   port never makes.
+   port never makes; and the solver layer: one FISTA iteration on bsr
+   and dense split into forward apply, adjoint and the rest, one CG
+   iteration on bsr (its order-2M gram, one union launch), the union
+   kernel at the gram's shape, and the cost of the tolerance test's host
+   synchronisation per iteration.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -65,6 +82,8 @@ UNION_TOL = 2e-4  # tests/test_kernels.py
 BF16_REL_BOUND = 16 * 2.0**-8  # tests/test_krylov_precision.py
 AGREE_TOL = 2e-4  # deployment: fused, stepwise and dense outputs
 BSR_DENSE_TOL = 1e-4  # paper shape: bsr against dense
+SOLVER_X_TOL, SOLVER_HIST_TOL = 1e-5, 1e-4  # tests/test_solvers.py:128-138
+PAPER_SCALES, PAPER_MU, SOLVER_TOL = 3, 2.0, 1e-6
 
 
 def say(msg: str) -> None:
@@ -74,6 +93,257 @@ def say(msg: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+class LaunchCounter:
+    """Runs a call with both kernels' launch counts set to 0 before it,
+    reads them after it, and keeps the totals over every counted call."""
+
+    def __init__(self, cheb_bsr):
+        self.cheb_bsr = cheb_bsr
+        self.union = self.step = 0
+
+    def __call__(self, fn):
+        self.cheb_bsr.reset_launch_counts()
+        out = fn()
+        union = self.cheb_bsr.cheb_union_cuda.launches
+        step = self.cheb_bsr.cheb_step_cuda.launches
+        self.union += union
+        self.step += step
+        return out, union, step
+
+
+def expect_launches(what: str, got: tuple, want: tuple) -> None:
+    require(got == want, f"{what}: launches (union, step) {got}, want {want}")
+
+
+def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
+                 check_union=None, check_step=None) -> dict:
+    """Phase 5: the solver layer on the paper's Sec. V-C shape and on the
+    deployment shape, every solve counted. ``check_union`` and
+    ``check_step`` (phase 3's checks) hold each kernel against its plain
+    version at the paper-shape solves' own operands and series."""
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.core import graph as tgraph
+    from repro_torch.core import multipliers as tmult
+    from repro_torch.filters import GraphFilter
+    from repro_torch import solvers
+
+    def mse(x, ref):
+        return float(torch.mean((x - ref) ** 2))
+
+    def maxdiff(a, b):
+        return float((a - b).abs().max())
+
+    # Paper Sec. V-C: 500 sensors, f0 = x^2 + y^2 - 1, noise sigma 0.5.
+    gen = torch.Generator().manual_seed(42)
+    g = tgraph.connected_sensor_graph(gen, n=PAPER_N, device=dev)
+    f0 = g.coords[:, 0] ** 2 + g.coords[:, 1] ** 2 - 1.0
+    y = f0 + 0.5 * torch.randn(f0.shape, generator=gen).to(dev)
+    lmax = float(g.lmax_bound())
+    bank = tmult.sgwt_filter_bank(lmax, PAPER_SCALES)
+    filt = GraphFilter.from_multipliers(bank, ORDER, graph=g, lmax=lmax)
+    lasso = solvers.LassoProblem(filt=filt, y=y, mu=PAPER_MU)
+    noisy = mse(y, f0)
+
+    runs = {}
+    for method in ("ista", "fista"):
+        res, u, s = count(lambda m=method: getattr(solvers, m)(lasso, n_iters=150, backend="bsr"))
+        expect_launches(f"{method} 150", (u, s), (res.iterations + 1, 0))
+        runs[method] = res
+    target = float(runs["ista"].history.min())
+    hits = {}
+    for method, res in runs.items():
+        hit = (res.history <= target).nonzero()[0]
+        hits[method] = int(hit[0]) if hit.size else 150
+    (ista40, fista20), u, s = count(lambda: (solvers.ista(lasso, n_iters=40, backend="bsr"),
+                                             solvers.fista(lasso, n_iters=20, backend="bsr")))
+    expect_launches("ista 40 + fista 20", (u, s), (41 + 21, 0))
+    obj_i, obj_f = lasso.objective(ista40.aux), lasso.objective(fista20.aux)
+    half_wins = obj_f <= obj_i * (1.0 + 1e-4)
+    require(half_wins, f"fista_at_half_wins: FISTA-20 {obj_f:.4f} > ISTA-40 {obj_i:.4f}")
+    say(f"[solvers] paper N={PAPER_N} eta={filt.eta} M={ORDER} mu={PAPER_MU} bsr: iterations to "
+        f"ISTA-150's best objective {target:.4f}: ista {hits['ista']}, fista {hits['fista']}; "
+        f"objective ISTA-40 {obj_i:.4f} FISTA-20 {obj_f:.4f} fista_at_half_wins={int(half_wins)}; "
+        f"launches union = iterations + 1 per solve")
+
+    ista_b, u, s = count(lambda: solvers.ista(lasso, n_iters=10, backend="bsr"))
+    expect_launches("ista 10 bsr", (u, s), (11, 0))
+    ista_d, u, s = count(lambda: solvers.ista(lasso, n_iters=10, backend="dense"))
+    expect_launches("ista 10 dense", (u, s), (0, 0))
+    dx = maxdiff(ista_b.x, ista_d.x)
+    dh = float(abs(ista_b.history - ista_d.history).max())
+    require(bool(torch.allclose(ista_b.x, ista_d.x, rtol=SOLVER_X_TOL, atol=SOLVER_X_TOL)),
+            f"paper ista bsr vs dense x {dx:.2e}")
+    require(bool(abs(ista_b.history - ista_d.history).max()
+                 <= SOLVER_HIST_TOL * (1 + abs(ista_d.history).max())),
+            f"paper ista bsr vs dense history {dh:.2e}")
+    say(f"[solvers] paper ISTA-10 bsr vs dense: max|dx| {dx:.2e} (tol {SOLVER_X_TOL:g}), "
+        f"max|dhistory| {dh:.2e} (tol {SOLVER_HIST_TOL:g} relative)")
+
+    # CG inverse filtering on the Gram operator, then PCG and cheb_inverse.
+    def observe():
+        o = filt.apply(f0, backend="bsr")
+        return o, filt.adjoint(o, backend="bsr")
+
+    (obs, b), u, s = count(observe)
+    expect_launches("observe + adjoint", (u, s), (1, 0))
+    gram = solvers.GramProblem(filt=filt, b=b, reg=1e-6)
+    cg, u, s = count(lambda: solvers.conjugate_gradient(gram, n_iters=150, tol=SOLVER_TOL,
+                                                        backend="bsr"))
+    expect_launches("cg", (u, s), (cg.iterations + 1, 0))
+    require(cg.converged, f"cg did not converge in 150 ({cg.history[-1]:.2e})")
+    cg_err = maxdiff(cg.x, f0)
+    pre = solvers.cheb_preconditioner(gram, order=32, backend="bsr")
+    pcg, u, s = count(lambda: solvers.conjugate_gradient(
+        gram, n_iters=150, tol=SOLVER_TOL, backend="bsr", preconditioner=pre))
+    expect_launches("pcg", (u, s), (2 * pcg.iterations + 2, 0))
+    pcg_halves = pcg.converged and pcg.iterations <= cg.iterations // 2
+    require(pcg_halves, f"pcg_halves: pcg {pcg.iterations} vs cg {cg.iterations}")
+    inv, u, s = count(lambda: solvers.cheb_inverse(gram, order=16, n_iters=150, tol=SOLVER_TOL,
+                                                   backend="bsr"))
+    expect_launches("cheb_inverse", (u, s), (2 * inv.iterations + 1, 0))
+    predicted = math.ceil(math.log(SOLVER_TOL) / math.log(inv.aux.rate))
+    require(inv.converged and inv.iterations <= predicted + 5,
+            f"cheb_inverse {inv.iterations} iterations, predicted {predicted} (+5)")
+    say(f"[solvers] paper CG reg=1e-6 tol={SOLVER_TOL:g}: {cg.iterations} iterations, "
+        f"max|x-f0| {cg_err:.2e}; PCG fit order {pre.orders[0]} rate {pre.rate:.4f}: "
+        f"{pcg.iterations} iterations pcg_halves={int(pcg_halves)}; cheb_inverse order "
+        f"{inv.aux.orders[0]} rate {inv.aux.rate:.4f}: {inv.iterations} iterations (predicted "
+        f"{predicted}); launches union cg {cg.iterations + 1}, pcg {2 * pcg.iterations + 2}, "
+        f"cheb_inverse {2 * inv.iterations + 1}")
+
+    # The step kernel on the solver path: the same CG on the stepwise route.
+    cg_s, u, s = count(lambda: solvers.conjugate_gradient(gram, n_iters=150, tol=SOLVER_TOL,
+                                                          backend="bsr", fuse=False))
+    expect_launches("cg fuse=False", (u, s), (0, 2 * ORDER * (cg_s.iterations + 1)))
+    d_step = maxdiff(cg_s.x, cg.x)
+    require(cg_s.iterations == cg.iterations and d_step <= SOLVER_X_TOL,
+            f"cg stepwise {cg_s.iterations} iterations, fused {cg.iterations}; |dx| {d_step:.2e}")
+    say(f"[solvers] paper CG fuse=False: {cg_s.iterations} iterations, max|x - fused x| "
+        f"{d_step:.2e} (tol {SOLVER_X_TOL:g}); launches step {s} = 2M x (iterations + 1)")
+
+    # The three apps.
+    den, u, s = count(lambda: apps.wavelet_denoise_ista(
+        g, y, lmax, n_scales=PAPER_SCALES, order=ORDER, mu=PAPER_MU, backend="bsr",
+        full_output=True))
+    expect_launches("wavelet_denoise_ista", (u, s), (den.iterations + 1, 0))
+    wie, u, s = count(lambda: apps.denoise_wiener(g, y, lmax, noise_power=0.25, order=ORDER,
+                                                  backend="bsr", full_output=True))
+    expect_launches("denoise_wiener", (u, s), (wie.iterations + 2, 0))
+    rec, u, s = count(lambda: apps.inverse_filter(
+        g, obs, lmax, bank=bank, order=ORDER, reg=1e-6, n_iters=150, tol=SOLVER_TOL,
+        backend="bsr", full_output=True))
+    expect_launches("inverse_filter", (u, s), (rec.iterations + 1, 0))
+    mse_ista, mse_wiener = mse(den.x, f0), mse(wie.x, f0)
+    require(mse_ista < noisy and mse_wiener < noisy and wie.converged,
+            f"denoisers: noisy {noisy:.4f}, ista {mse_ista:.4f}, wiener {mse_wiener:.4f}")
+    d_rec = maxdiff(rec.x, cg.x)
+    require(rec.converged and rec.iterations == cg.iterations and d_rec <= SOLVER_X_TOL,
+            f"inverse_filter {rec.iterations} iterations vs cg {cg.iterations}, |dx| {d_rec:.2e}")
+    say(f"[solvers] paper apps bsr: noisy MSE {noisy:.4f}; wavelet_denoise_ista MSE "
+        f"{mse_ista:.4f} ({den.iterations} iterations); denoise_wiener MSE {mse_wiener:.4f} "
+        f"({wie.iterations} iterations); inverse_filter {rec.iterations} iterations, "
+        f"max|x-f0| {maxdiff(rec.x, f0):.2e}, max|x - CG x| {d_rec:.2e}")
+
+    # Each kernel at the paper-shape solves' shapes: one column, the
+    # lasso forward bank, the gram, and the two fitted inverse series.
+    union_err = step_err = 0.0
+    if check_union is not None:
+        pb = filt.prepare_backend("bsr").bell
+        cgen = torch.Generator().manual_seed(11)
+        col, col2 = (torch.randn(pb.n, 1, generator=cgen).to(dev) for _ in range(2))
+        for coeffs, where in ((filt.coeffs, f"lasso forward eta={filt.eta} M={ORDER}"),
+                              (filt.gram_coeffs[None], f"gram eta=1 M={2 * ORDER}"),
+                              (pre.coeffs[None], f"PCG q(L) M={pre.orders[0]}"),
+                              (inv.aux.coeffs[None], f"cheb_inverse q(L) M={inv.aux.orders[0]}")):
+            union_err = max(union_err, check_union(pb.blocks, pb.cols, col, coeffs, filt.lmax,
+                                                   f"paper {where} F=1"))
+        step_err = check_step(pb.blocks, pb.cols, col, col2, filt.lmax / 2.0, "paper F=1")
+
+    # Deployment shape: FISTA on a panel, bsr against dense, and Wiener.
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    deploy = solvers.LassoProblem(filt=deploy_filt, y=deploy_signal, mu=PAPER_MU)
+    fb, u, s = count(lambda: solvers.fista(deploy, n_iters=10, backend="bsr"))
+    expect_launches("deploy fista 10 bsr", (u, s), (11, 0))
+    fd, u, s = count(lambda: solvers.fista(deploy, n_iters=10, backend="dense"))
+    expect_launches("deploy fista 10 dense", (u, s), (0, 0))
+    dfx, dfa = maxdiff(fb.x, fd.x), maxdiff(fb.aux, fd.aux)
+    require(max(dfx, dfa) < AGREE_TOL and bool(torch.isfinite(fb.x).all()),
+            f"deploy fista bsr vs dense x {dfx:.2e} a {dfa:.2e}")
+    wd, u, s = count(lambda: solvers.wiener(deploy_filt, deploy_signal, 0.25, n_iters=50,
+                                            tol=SOLVER_TOL, backend="bsr"))
+    expect_launches("deploy wiener", (u, s), (wd.iterations + 2, 0))
+    require(wd.converged, f"deploy wiener did not converge in 50 ({wd.history[-1]:.2e})")
+    wdd, u, s = count(lambda: solvers.wiener(deploy_filt, deploy_signal, 0.25, n_iters=50,
+                                             tol=SOLVER_TOL, backend="dense"))
+    expect_launches("deploy wiener dense", (u, s), (0, 0))
+    dwx = maxdiff(wd.x, wdd.x)
+    require(wdd.converged and dwx < AGREE_TOL,
+            f"deploy wiener bsr vs dense: {wd.iterations} vs {wdd.iterations} iterations, "
+            f"max|dx| {dwx:.2e}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    n, f = deploy_signal.shape
+    say(f"[solvers] deploy N={n} F={f} eta={deploy_filt.eta} M={deploy_filt.order}: FISTA-10 "
+        f"bsr vs dense max|dx| {dfx:.2e} max|da| {dfa:.2e} (tol {AGREE_TOL:g}), launches union "
+        f"11; wiener noise_power=0.25 tol={SOLVER_TOL:g}: {wd.iterations} iterations, "
+        f"converged, launches union {wd.iterations + 2}; dense {wdd.iterations} iterations, "
+        f"bsr vs dense max|dx| {dwx:.2e} (tol {AGREE_TOL:g}); peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    return {"deploy_problem": deploy, "union_err": union_err, "step_err": step_err}
+
+
+def solver_timing(median_ms, deploy_problem, bell, f_tile: int) -> dict:
+    """The solver layer's per-iteration times at the deployment shape."""
+    from repro_torch import solvers
+    from repro_torch.kernels import cheb_bsr
+    from repro_torch.kernels.autotune import union_grid_barriers
+
+    filt, y = deploy_problem.filt, deploy_problem.y
+    out = {}
+    # One FISTA iteration: the slope of fixed-budget solves of 1 and 6
+    # iterations; its forward apply (one union launch on bsr) and adjoint
+    # timed alone on the same operands; the rest is the difference.
+    for backend in ("bsr", "dense"):
+        run = {k: median_ms(lambda k=k: solvers.fista(deploy_problem, n_iters=k, backend=backend),
+                            reps=5, warmup=1) for k in (1, 6)}
+        out[f"fista_{backend}"] = (run[6] - run[1]) / 5
+        a = filt.apply(y, backend=backend)
+        out[f"forward_{backend}"] = median_ms(lambda: filt.apply(y, backend=backend))
+        out[f"adjoint_{backend}"] = median_ms(lambda: filt.adjoint(a, backend=backend))
+        out[f"rest_{backend}"] = (out[f"fista_{backend}"] - out[f"forward_{backend}"]
+                                  - out[f"adjoint_{backend}"])
+    gram = solvers.GramProblem(filt=filt, b=y, reg=0.25)
+    mv = gram.operator("bsr")
+    out["gram_bsr"] = median_ms(lambda: mv(y))
+    out["gram_union_kernel"] = median_ms(lambda: cheb_bsr.cheb_union_cuda(
+        bell.blocks, bell.cols, y.contiguous(), coeffs=filt.gram_coeffs[None], lmax=filt.lmax,
+        f_tile=f_tile))
+    n_iters = 10
+    cg_fixed = median_ms(lambda: solvers.conjugate_gradient(
+        gram, n_iters=n_iters, tol=None, backend="bsr"), reps=7, warmup=2)
+    cg_one = median_ms(lambda: solvers.conjugate_gradient(
+        gram, n_iters=1, tol=None, backend="bsr"), reps=7, warmup=2)
+    out["cg_iteration_bsr"] = (cg_fixed - cg_one) / (n_iters - 1)
+    out["cg_rest_bsr"] = out["cg_iteration_bsr"] - out["gram_bsr"]
+    out["gram_grid_barriers"] = union_grid_barriers(
+        y.shape[1], f_tile, 1, 2 * filt.order, bell.block_size)
+    # The tolerance test's host sync: 40 CG iterations with a tolerance
+    # that never fires against the same 40 at a fixed budget, timed in
+    # alternating pairs; each pair gives one per-iteration difference.
+    n_sync = 40
+
+    def cg(tol):
+        return solvers.conjugate_gradient(gram, n_iters=n_sync, tol=tol, backend="bsr")
+
+    diffs = [(median_ms(lambda: cg(1e-30), reps=1, warmup=int(i == 0))
+              - median_ms(lambda: cg(None), reps=1, warmup=int(i == 0))) / n_sync
+             for i in range(5)]
+    out["tol_sync"] = sorted(diffs)
+    return out
 
 
 def main() -> int:
@@ -234,6 +504,10 @@ def main() -> int:
     bell16 = filt.prepare_backend("bsr", block_size=16).bell
     union_err = max(union_err, check_union(bell16.blocks, bell16.cols, f_ragged, filt.coeffs,
                                            lmax, "deploy B=16 F=100"))
+    # The solvers' gram at the deployment shape: eta = 1, order 2M.
+    union_err = max(union_err, check_union(bell.blocks, bell.cols, f_deploy,
+                                           filt.gram_coeffs[None], lmax,
+                                           f"deploy gram eta=1 M={2 * ORDER}"))
 
     # ---- 4. the main path, counted ------------------------------------------
     cheb_bsr.reset_launch_counts()
@@ -282,7 +556,18 @@ def main() -> int:
     say(f"[main path] launches in the counted run: cheb_union {main_union}, "
         f"cheb_step {main_step}")
 
-    # ---- 5. timing ------------------------------------------------------------
+    # ---- 5. solvers, each solve counted ---------------------------------------
+    count = LaunchCounter(cheb_bsr)
+    solved = solver_phase(dev, count, filt, signal, check_union, check_step)
+    union_err = max(union_err, solved["union_err"])
+    step_err = max(step_err, solved["step_err"])
+    require(count.union > 0 and count.step > 0, "a kernel of the solver path was never launched")
+    say(f"[solvers] launches in the counted solves: cheb_union {count.union}, "
+        f"cheb_step {count.step}")
+    main_union += count.union
+    main_step += count.step
+
+    # ---- 6. timing ------------------------------------------------------------
     def median_ms(fn, reps=15, warmup=3):
         for _ in range(warmup):
             fn()
@@ -385,6 +670,11 @@ def main() -> int:
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     ub, ub_by = bound(union_bytes, union_flops)
+    # The solvers' gram: one union apply at eta = 1 and order 2M.
+    gram_order = 2 * ORDER
+    gram_bytes = tile_bytes + sig * 4 + (gram_order + 1) * 4 + sig * 4
+    gram_flops = gram_order * (2 * nnz_l * DEPLOY_F + 4 * sig) + (gram_order + 1) * 2 * sig
+    gb, gb_by = bound(gram_bytes, gram_flops)
     sb, sb_by = bound(step_bytes, step_flops)
     say(f"[timing] cheb_union kernel {union_ms:.3f} ms (plain {union_plain_ms:.3f}, bound "
         f"{ub:.4f} by {ub_by}: {union_bytes / 1e6:.1f} MB, {union_flops / 1e9:.2f} GFLOP); "
@@ -392,6 +682,20 @@ def main() -> int:
         f"{sb_by}: {step_bytes / 1e6:.1f} MB, {step_flops / 1e9:.3f} GFLOP; bf16 signal "
         f"{step_bf16_ms:.3f}; library addmm on sparse {lib_format} {step_lib_ms:.3f}, "
         f"max|addmm-plain| {float(lib_err.max()):.3e} (tol {F32_STEP_TOL:g}))")
+    st = solver_timing(median_ms, solved["deploy_problem"], bell, tiling.f_tile)
+    say(f"[timing] cheb_union at the gram's shape (eta=1, M={gram_order}) "
+        f"{st['gram_union_kernel']:.3f} ms, bound {gb:.4f} by {gb_by}: "
+        f"{gram_bytes / 1e6:.1f} MB, {gram_flops / 1e9:.2f} GFLOP")
+    say(f"[timing] solvers, median ms at N={DEPLOY_N} F={DEPLOY_F} eta={filt.eta} M={ORDER}: "
+        f"FISTA iteration bsr {st['fista_bsr']:.3f} (forward apply {st['forward_bsr']:.3f}, "
+        f"adjoint {st['adjoint_bsr']:.3f}, rest {st['rest_bsr']:.3f}), dense "
+        f"{st['fista_dense']:.3f} (forward {st['forward_dense']:.3f}, adjoint "
+        f"{st['adjoint_dense']:.3f}, rest {st['rest_dense']:.3f}); CG iteration bsr "
+        f"{st['cg_iteration_bsr']:.3f} (gram M={2 * ORDER} {st['gram_bsr']:.3f}, its union kernel "
+        f"{st['gram_union_kernel']:.3f} with {st['gram_grid_barriers']} grid barriers; rest "
+        f"{st['cg_rest_bsr']:.3f}); tol-mode host sync per iteration, median of 5 pairs of "
+        f"40-iteration CG runs {statistics.median(st['tol_sync']):.4f} (pairs "
+        + " ".join(f"{d:.4f}" for d in st["tol_sync"]) + ")")
     say(smi)
 
     kernels = [
@@ -403,6 +707,7 @@ def main() -> int:
             "ms": union_ms, "device_ms": device_ms.get("cheb_union_kernel"),
             "plain_ms": union_plain_ms,
             "bound_ms": ub, "bound_by": ub_by, "library_ms": None,
+            "gram_ms": st["gram_union_kernel"], "gram_bound_ms": gb, "gram_bound_by": gb_by,
         },
         {
             "name": "cheb_step", "route": "cuda",

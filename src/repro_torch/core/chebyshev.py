@@ -1,7 +1,8 @@
 """Shifted-Chebyshev approximation of graph Fourier multipliers.
 
 Mirrors ``repro/core/chebyshev.py`` (single-shift subset; the ``*_joint``
-and inverse functions come with the multi-shift port):
+recurrences and joint coefficient builders come with the multi-shift
+port):
 
 * eq. (8)  — Chebyshev coefficients ``c_{j,k}`` by Chebyshev--Gauss
   quadrature (host numpy float64, identical to the reference),
@@ -10,7 +11,11 @@ and inverse functions come with the multi-shift port):
   evaluated with matvecs against ``L`` (a Python loop where the reference
   has ``lax.scan``),
 * eq. (11) — the union combine over one shared Krylov sequence,
-* Sec. IV-C — the product identity behind the degree-2M Gram series.
+* Sec. IV-C — the product identity behind the degree-2M Gram series,
+* the inverse fit ``q ~= 1/(h + reg)`` behind ``solvers/inverse.py``
+  (host numpy float64, identical to the reference; it evaluates ``h``
+  through the tensor-grid evaluator ``cheb_eval_joint`` even for one
+  shift).
 
 Coefficients are float64 numpy; every apply casts them explicitly to the
 signal's dtype and device, as the reference does, so a float32 signal is
@@ -27,12 +32,15 @@ import torch
 __all__ = [
     "cheb_coefficients",
     "cheb_eval",
+    "cheb_eval_joint",
     "cheb_apply",
     "cheb_apply_krylov",
     "cheb_apply_dense",
     "cheb_adjoint_apply",
     "product_coefficients",
     "gram_coefficients",
+    "inverse_coefficients",
+    "inverse_fixed_point_rate",
 ]
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
@@ -85,6 +93,49 @@ def cheb_eval(coeffs: np.ndarray, x: np.ndarray, lmax: float) -> np.ndarray:
         out = out + c[:, k : k + 1] * t_k
         t_prev2, t_prev1 = t_prev1, t_k
     return out if np.asarray(coeffs).ndim == 2 else out[0]
+
+
+def cheb_eval_joint(
+    coeffs: np.ndarray, xs: Sequence[np.ndarray], lmaxes: Sequence[float]
+) -> np.ndarray:
+    """Evaluate a joint series on the tensor grid ``xs[0] x ... x xs[R-1]``.
+
+    Args:
+      coeffs: (eta, M_1+1, ..., M_R+1) joint coefficient tensor.
+      xs: per-axis evaluation points, each within [0, lmaxes[r]].
+
+    Returns: (eta, len(xs[0]), ..., len(xs[R-1])) evaluations with the
+    per-axis half-first-coefficient convention.
+    """
+    c = np.asarray(coeffs, dtype=np.float64)
+    n_shifts = len(xs)
+    if c.ndim != n_shifts + 1:
+        raise ValueError(
+            f"joint coeffs must have ndim R+1 = {n_shifts + 1}, "
+            f"got shape {c.shape}"
+        )
+    out = c
+    for r in range(n_shifts):
+        basis = _cheb_basis(c.shape[1 + r] - 1, xs[r], lmaxes[r])
+        basis[0] *= 0.5  # half convention on this axis
+        # contract axis 1 (the current leading shift axis); the grid axis
+        # lands at the end, so axis order is preserved overall.
+        out = np.tensordot(out, basis, axes=[[1], [0]])
+    return out
+
+
+def _cheb_basis(order: int, x: np.ndarray, lmax: float) -> np.ndarray:
+    """(M+1, len(x)) matrix of shifted Chebyshev values ``Tbar_k(x)``."""
+    x = np.asarray(x, dtype=np.float64)
+    alpha = lmax / 2.0
+    y = (x - alpha) / alpha
+    basis = np.empty((order + 1, len(x)))
+    basis[0] = 1.0
+    if order >= 1:
+        basis[1] = y
+    for k in range(2, order + 1):
+        basis[k] = 2.0 * y * basis[k - 1] - basis[k - 2]
+    return basis
 
 
 def _cast_coeffs(coeffs, like: torch.Tensor) -> torch.Tensor:
@@ -222,3 +273,77 @@ def gram_coefficients(coeffs: np.ndarray) -> np.ndarray:
     for j in range(c.shape[0]):
         out += product_coefficients(c[j], c[j])
     return out
+
+
+def inverse_coefficients(
+    h_coeffs: np.ndarray,
+    lmax: float | Sequence[float],
+    order: int | Sequence[int],
+    *,
+    reg: float = 0.0,
+    quad_points: int | None = None,
+) -> np.ndarray:
+    """Low-order Chebyshev fit of ``q(lambda) ~= 1 / (h(lambda) + reg)``.
+
+    The inverse-filtering core (arXiv:2504.14341): ``h`` is given by its
+    own Chebyshev series (typically a filter's ``gram_coeffs``) and the
+    returned order-K series ``q`` approximates its regularized reciprocal
+    on the spectral domain, by Chebyshev--Gauss quadrature. Used as a
+    polynomial preconditioner for CG and as the fixed-point iteration
+    ``x <- x + q(L) (b - (h(L) + reg) x)``, whose linear rate is
+    :func:`inverse_fixed_point_rate`.
+
+    Single-shift: ``h_coeffs`` is (2M+1,), ``lmax``/``order`` scalars, and
+    the result is a (K+1,) series. Sequences of lmaxes and orders give the
+    per-axis tensor quadrature of a joint series, as in the reference.
+    ``h + reg`` must be positive on the whole domain; a nonpositive
+    minimum raises ``ValueError``.
+    """
+    h = np.asarray(h_coeffs, dtype=np.float64)
+    scalar = np.isscalar(lmax) or np.ndim(lmax) == 0
+    lmaxes = [float(lmax)] if scalar else [float(v) for v in lmax]
+    orders = [int(order)] if scalar else [int(v) for v in order]
+    if h.ndim != len(lmaxes) or len(orders) != len(lmaxes):
+        raise ValueError(
+            f"h ndim {h.ndim} vs {len(lmaxes)} lmaxes / {len(orders)} orders"
+        )
+    ps = [quad_points or max(k + 1, 64) * 4 for k in orders]
+    thetas = [np.pi * (np.arange(p) + 0.5) / p for p in ps]
+    xs = [(lm / 2.0) * (np.cos(th) + 1.0) for lm, th in zip(lmaxes, thetas)]
+    hv = cheb_eval_joint(h[None], xs, lmaxes)[0]
+    denom = hv + reg
+    if float(denom.min()) <= 0.0:
+        raise ValueError(
+            f"h + reg not positive on the domain (min {float(denom.min()):.3e});"
+            " raise reg= or check the series"
+        )
+    c = 1.0 / denom
+    for r in range(len(lmaxes)):
+        basis = np.cos(np.outer(np.arange(orders[r] + 1), thetas[r]))
+        c = np.tensordot(c, basis, axes=[[0], [1]]) * (2.0 / ps[r])
+    return c if not scalar else np.asarray(c)
+
+
+def inverse_fixed_point_rate(
+    q_coeffs: np.ndarray,
+    h_coeffs: np.ndarray,
+    lmax: float | Sequence[float],
+    *,
+    reg: float = 0.0,
+    grid: int = 2048,
+) -> float:
+    """Sup-norm contraction factor ``max |1 - q(x)(h(x) + reg)|``.
+
+    The fixed-point iteration ``x <- x + q(L) r`` converges linearly at
+    this rate; values >= 1 mean the fit order is too low for ``h`` and
+    ``reg``.
+    """
+    q = np.asarray(q_coeffs, dtype=np.float64)
+    h = np.asarray(h_coeffs, dtype=np.float64)
+    scalar = np.isscalar(lmax) or np.ndim(lmax) == 0
+    lmaxes = [float(lmax)] if scalar else [float(v) for v in lmax]
+    n_pts = max(64, int(round(grid ** (1.0 / len(lmaxes)))))
+    xs = [np.linspace(0.0, lm, n_pts) for lm in lmaxes]
+    qv = cheb_eval_joint(q[None], xs, lmaxes)[0]
+    hv = cheb_eval_joint(h[None], xs, lmaxes)[0]
+    return float(np.max(np.abs(1.0 - qv * (hv + reg))))

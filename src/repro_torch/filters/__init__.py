@@ -7,6 +7,10 @@ from repro_torch.filters.registry import (
     BackendCapabilities,
     FilterBackend,
     available_backends,
+    backend_capabilities,
+    backend_is_traceable,
+    backend_supports_multi_shift,
+    backend_supports_sparse,
     get_backend,
     register_backend,
     require_capability,
@@ -18,6 +22,10 @@ __all__ = [
     "FilterBackend",
     "GraphFilter",
     "available_backends",
+    "backend_capabilities",
+    "backend_is_traceable",
+    "backend_supports_multi_shift",
+    "backend_supports_sparse",
     "bucket_size",
     "get_backend",
     "register_backend",

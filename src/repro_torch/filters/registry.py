@@ -19,6 +19,10 @@ __all__ = [
     "register_backend",
     "get_backend",
     "available_backends",
+    "backend_capabilities",
+    "backend_is_traceable",
+    "backend_supports_sparse",
+    "backend_supports_multi_shift",
     "require_capability",
 ]
 
@@ -31,7 +35,9 @@ class BackendCapabilities:
     ----------
     traceable : bool
         True iff apply/adjoint/gram run device ops only (no host round
-        trip), so solver loops may keep their state on the device.
+        trip), so solver loops may keep their state on the device
+        (``solvers/loops.py`` then records histories as the reference's
+        compiled loops do).
     sparse_input : bool
         True iff the backend implements ``apply_sparse``. No backend of
         the port does yet (the streaming slice adds it).
@@ -111,6 +117,27 @@ def get_backend(name: str) -> FilterBackend:
 def available_backends() -> tuple[str, ...]:
     """Names of all registered backends, sorted."""
     return tuple(sorted(_REGISTRY))
+
+
+def backend_capabilities(name: str) -> BackendCapabilities:
+    """The :class:`BackendCapabilities` record of backend ``name``."""
+    return get_backend(name).capabilities
+
+
+def backend_is_traceable(name: str) -> bool:
+    """True iff backend ``name`` declares the ``traceable`` capability."""
+    return backend_capabilities(name).traceable
+
+
+def backend_supports_sparse(name: str) -> bool:
+    """True iff backend ``name`` declares ``sparse_input`` (implements
+    ``apply_sparse``)."""
+    return backend_capabilities(name).sparse_input
+
+
+def backend_supports_multi_shift(name: str) -> bool:
+    """True iff backend ``name`` evaluates multi-shift joint filters."""
+    return backend_capabilities(name).multi_shift
 
 
 def require_capability(backend: FilterBackend | str, capability: str) -> None:

@@ -1,9 +1,9 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
 The reference draws its graphs from ``jax.random``; these helpers let the
-same drawn graph, Block-ELL operands and coefficients enter the port, so
-tests can feed identical inputs to both packages. Nothing here imports
-the reference: callers pass numpy arrays.
+same drawn graph, Block-ELL operands, coefficients and solver problems
+enter the port, so tests can feed identical inputs to both packages.
+Nothing here imports the reference: callers pass numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,8 +15,14 @@ from repro_torch.core.graph import SensorGraph
 from repro_torch.device import resolve_device
 from repro_torch.filters import GraphFilter
 from repro_torch.kernels.ref import BlockEll
+from repro_torch.solvers import GramProblem, LassoProblem
 
-__all__ = ["sensor_graph_from_numpy", "block_ell_from_numpy", "filter_from_numpy"]
+__all__ = [
+    "sensor_graph_from_numpy",
+    "block_ell_from_numpy",
+    "filter_from_numpy",
+    "problem_from_numpy",
+]
 
 
 def sensor_graph_from_numpy(
@@ -54,3 +60,34 @@ def filter_from_numpy(coeffs, lmax: float, graph: SensorGraph | None = None) -> 
     """A ``GraphFilter`` from (eta, M+1) coefficients and ``lmax``, bound
     to ``graph`` (whose device the filter's backends use)."""
     return GraphFilter.from_coefficients(np.asarray(coeffs, np.float64), float(lmax), graph=graph)
+
+
+def problem_from_numpy(
+    coeffs,
+    lmax: float,
+    graph: SensorGraph,
+    *,
+    y=None,
+    mu=1.0,
+    step: float | None = None,
+    b=None,
+    reg: float = 0.0,
+) -> LassoProblem | GramProblem:
+    """The port's solver problem from a reference problem's arrays.
+
+    Pass ``y`` (with ``mu`` and ``step``) for a ``LassoProblem`` or ``b``
+    (with ``reg``) for a ``GramProblem``. The filter comes from
+    ``filter_from_numpy(coeffs, lmax, graph)``; signals, and a
+    non-scalar ``mu``, are placed on ``graph``'s device as float32.
+    """
+    if (y is None) == (b is None):
+        raise ValueError("pass exactly one of y= (lasso) or b= (gram)")
+    filt = filter_from_numpy(coeffs, lmax, graph)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), device=graph.device).to(torch.float32)
+
+    if y is not None:
+        mu_t = float(mu) if np.ndim(mu) == 0 else tensor(mu)
+        return LassoProblem(filt=filt, y=tensor(y), mu=mu_t, step=step)
+    return GramProblem(filt=filt, b=tensor(b), reg=float(reg))

@@ -127,3 +127,43 @@ def test_bsr_backend_on_cuda_reaches_only_the_kernels(cuda_device):
     assert cheb_bsr.cheb_step_cuda.launches == 20
     torch.testing.assert_close(fused, dense, rtol=0, atol=1e-4)
     torch.testing.assert_close(stepwise, dense, rtol=0, atol=1e-4)
+
+
+def _solver_setting(device):
+    from repro_torch import solvers
+
+    gen = torch.Generator().manual_seed(1)
+    g = tgraph.connected_sensor_graph(gen, n=96, sigma=0.17, kappa=0.18, device=device)
+    lmax = float(g.lmax_bound())
+    filt = GraphFilter.from_multipliers(tmult.sgwt_filter_bank(lmax, 3), 16, graph=g, lmax=lmax)
+    f0 = g.coords[:, 0] ** 2 + g.coords[:, 1] ** 2 - 1.0
+    y = f0 + 0.5 * torch.randn(f0.shape, generator=gen).to(device)
+    return solvers, filt, y
+
+
+def test_ista_on_the_kernels_matches_dense(cuda_device):
+    solvers, filt, y = _solver_setting(cuda_device)
+    problem = solvers.LassoProblem(filt=filt, y=y, mu=2.0)
+    dense = solvers.ista(problem, n_iters=10, backend="dense")
+    cheb_bsr.reset_launch_counts()
+    fused = solvers.ista(problem, n_iters=10, backend="bsr")
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == (11, 0)
+    stepwise = solvers.ista(problem, n_iters=10, backend="bsr", fuse=False)
+    assert cheb_bsr.cheb_step_cuda.launches == 11 * 16
+    for res in (fused, stepwise):
+        torch.testing.assert_close(res.x, dense.x, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(res.aux, dense.aux, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res.history, dense.history, rtol=1e-4, atol=1e-4)
+
+
+def test_cg_on_bsr_launches_one_union_per_gram(cuda_device):
+    solvers, filt, y = _solver_setting(cuda_device)
+    problem = solvers.GramProblem(filt=filt, b=y, reg=1.0)
+    cheb_bsr.reset_launch_counts()
+    res = solvers.conjugate_gradient(problem, n_iters=100, tol=1e-5, backend="bsr")
+    assert res.converged and 0 < res.iterations < 100
+    assert cheb_bsr.cheb_union_cuda.launches == res.iterations + 1
+    assert cheb_bsr.cheb_step_cuda.launches == 0
+    dense = solvers.conjugate_gradient(problem, n_iters=100, tol=1e-5, backend="dense")
+    assert abs(dense.iterations - res.iterations) <= 1
+    torch.testing.assert_close(res.x, dense.x, rtol=1e-3, atol=1e-4)
