@@ -51,7 +51,17 @@ Phases, each printing its own lines:
    and dense split into forward apply, adjoint and the rest, one CG
    iteration on bsr (its order-2M gram, one union launch), the union
    kernel at the gram's shape, and the cost of the tolerance test's host
-   synchronisation per iteration.
+   synchronisation per iteration;
+7. distributed (Algorithm 1 on ``StackedMesh(8)``, all eight ranks on the
+   card, outside the counted windows; it must launch no bsr kernel): the
+   two distributed example modules at the paper shape; at the deployment
+   shape the partition plan (words, padding, host build seconds), halo
+   (overlapped and serial), allgather and the halo adjoint against dense,
+   FISTA-10 on halo against phase 5's dense FISTA-10, and the grid
+   backend on a 128 x 128 grid (depth 2) against dense, all within 2e-4,
+   with every exchange count and word count checked exactly; then median
+   CUDA-event ms of each, the kernel time per call from
+   ``torch.profiler`` and the device's idle share.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -84,6 +94,7 @@ AGREE_TOL = 2e-4  # deployment: fused, stepwise and dense outputs
 BSR_DENSE_TOL = 1e-4  # paper shape: bsr against dense
 SOLVER_X_TOL, SOLVER_HIST_TOL = 1e-5, 1e-4  # tests/test_solvers.py:128-138
 PAPER_SCALES, PAPER_MU, SOLVER_TOL = 3, 2.0, 1e-6
+N_PARTS, GRID_SIDE = 8, 128  # the distributed phase: ranks, grid side
 
 
 def say(msg: str) -> None:
@@ -93,6 +104,46 @@ def say(msg: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def median_ms(fn, reps=15, warmup=3):
+    """Median CUDA-event milliseconds of ``fn`` over ``reps`` runs after
+    ``warmup`` runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def device_busy_ms(fn, runs=5):
+    """Kernel time per call of ``fn``: the summed device time of every
+    kernel ``torch.profiler`` traces over ``runs`` calls, divided by
+    ``runs``. Against ``median_ms`` of the same call it gives the device's
+    idle share (host dispatch the device waits for)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    return us / runs / 1e3
 
 
 class LaunchCounter:
@@ -293,10 +344,11 @@ def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
         f"converged, launches union {wd.iterations + 2}; dense {wdd.iterations} iterations, "
         f"bsr vs dense max|dx| {dwx:.2e} (tol {AGREE_TOL:g}); peak device memory "
         f"{peak / 2**20:.0f} MiB")
-    return {"deploy_problem": deploy, "union_err": union_err, "step_err": step_err}
+    return {"deploy_problem": deploy, "deploy_fista_dense": fd, "union_err": union_err,
+            "step_err": step_err}
 
 
-def solver_timing(median_ms, deploy_problem, bell, f_tile: int) -> dict:
+def solver_timing(deploy_problem, bell, f_tile: int) -> dict:
     """The solver layer's per-iteration times at the deployment shape."""
     from repro_torch import solvers
     from repro_torch.kernels import cheb_bsr
@@ -344,6 +396,145 @@ def solver_timing(median_ms, deploy_problem, bell, f_tile: int) -> dict:
              for i in range(5)]
     out["tol_sync"] = sorted(diffs)
     return out
+
+
+def distributed_phase(dev, filt, signal, fista_dense, n_parts: int = N_PARTS) -> dict:
+    """Phase 7: Algorithm 1 on a ``StackedMesh`` of ``n_parts`` ranks on
+    the card — the paper-shape example modules, then the deployment
+    shape's halo (both schedules), allgather and adjoint against dense,
+    FISTA-10 on halo against dense, and the grid backend on a 128 x 128
+    grid; every exchange count and word count checked exactly."""
+    import torch
+
+    from repro_torch import distributed_denoising, distributed_wavelet_ista, solvers
+    from repro_torch.core import graph as tgraph
+    from repro_torch.core import multipliers as tmult
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.filters import GraphFilter
+
+    def maxdiff(a, b):
+        return float((a - b).abs().max())
+
+    def expect_calls(mesh, what, want):
+        got = dict(mesh.calls)
+        require(got == want, f"{what}: collective calls {got}, want {want}")
+
+    # Paper shape: the two example modules on the card, each self-checking.
+    den = distributed_denoising.main(device=dev, n_parts=n_parts)
+    wav = distributed_wavelet_ista.main(device=dev, n_parts=n_parts)
+    say(f"[distributed] paper N={PAPER_N} P={n_parts}: denoising halo/allgather vs dense "
+        f"{den['errs']['halo']:.2e}/{den['errs']['allgather']:.2e} (tol 1e-4), words/apply halo "
+        f"{den['words']['halo']} allgather {den['words']['allgather']} radio 2M|E| "
+        f"{den['radio_words']}, MSE noisy {den['noisy_mse']:.4f} denoised "
+        f"{den['denoised_mse']:.4f}, adjoint vs gram {den['gram_err']:.2e} (tol 1e-3); wavelet "
+        f"ISTA-20 on halo vs dense {wav['deviation']:.2e} (tol 1e-3), MSE "
+        f"{wav['denoised_mse']:.4f}, sparsity {wav['sparsity']:.2f}, words/iteration "
+        f"{wav['words_per_iteration']} (radio {wav['radio_words']}), FISTA-10 "
+        f"{wav['objective_fista_half']:.4f} <= 1.001 x ISTA-20 {wav['objective_ista']:.4f}")
+
+    # Deployment shape: the plan, built on the host as the reference does.
+    n, f = signal.shape
+    m = filt.order
+    mesh = StackedMesh(n_parts, dev)
+    t0 = time.perf_counter()
+    plan = filt.prepare_backend("halo", mesh=mesh).plan
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    padded = n_parts * (n_parts - 1) * plan.max_halo * f
+    say(f"[distributed] deploy N={n} F={f} P={n_parts}: halo_words {plan.halo_words} max_halo "
+        f"{plan.max_halo} n_boundary {plan.n_boundary} (boundary rows per rank "
+        f"{int(plan.boundary_counts.min())}-{int(plan.boundary_counts.max())} of "
+        f"{plan.n_local}), plan build {plan_s:.2f} s on the host; elements per halo exchange "
+        f"{padded} padded against {plan.halo_words * f} in the words model "
+        f"({padded / (plan.halo_words * f):.2f}x)")
+
+    dense = filt.apply(signal, backend="dense")
+    errs = {}
+    for name, backend, opts, kind in (("halo", "halo", {"overlap": True}, "all_to_all"),
+                                      ("halo_serial", "halo", {"overlap": False}, "all_to_all"),
+                                      ("allgather", "allgather", {}, "all_gather")):
+        mesh.reset_counts()
+        out = filt.apply(signal, backend=backend, mesh=mesh, **opts)
+        torch.cuda.synchronize()
+        expect_calls(mesh, f"deploy {name} apply", {kind: m})
+        per_exchange = padded if kind == "all_to_all" else plan.n_local * n_parts * (n_parts - 1) * f
+        require(mesh.elements[kind] == m * per_exchange,
+                f"deploy {name}: {mesh.elements[kind]} elements, want {m * per_exchange}")
+        require(out.shape == dense.shape and bool(torch.isfinite(out).all()), f"{name} output")
+        errs[name] = maxdiff(out, dense)
+        require(errs[name] < AGREE_TOL, f"deploy {name} vs dense {errs[name]:.2e}")
+    mesh.reset_counts()
+    adjoint = filt.adjoint(dense, backend="halo", mesh=mesh)
+    expect_calls(mesh, "deploy halo adjoint", {"all_to_all": m})
+    errs["adjoint"] = maxdiff(adjoint, filt.adjoint(dense, backend="dense"))
+    require(errs["adjoint"] < AGREE_TOL, f"deploy halo adjoint vs dense {errs['adjoint']:.2e}")
+    problem = solvers.LassoProblem(filt=filt, y=signal, mu=PAPER_MU)
+    mesh.reset_counts()
+    fh = solvers.fista(problem, n_iters=10, backend="halo", mesh=mesh)
+    # one forward apply to start, one apply and one adjoint per iteration,
+    # one adjoint for the result: M exchanges each
+    expect_calls(mesh, "deploy FISTA-10 on halo", {"all_to_all": m * (2 * 10 + 2)})
+    errs["fista_x"] = maxdiff(fh.x, fista_dense.x)
+    errs["fista_a"] = maxdiff(fh.aux, fista_dense.aux)
+    require(max(errs["fista_x"], errs["fista_a"]) < AGREE_TOL,
+            f"deploy FISTA-10 halo vs dense x {errs['fista_x']:.2e} a {errs['fista_a']:.2e}")
+    words = {b: filt.messages_per_apply(backend=b, mesh=mesh) for b in ("halo", "allgather")}
+    require(words["halo"] == m * plan.halo_words, f"halo words {words['halo']}")
+    require(words["allgather"] == m * plan.n_local * n_parts * (n_parts - 1),
+            f"allgather words {words['allgather']}")
+    require(fh.messages_per_iteration == words["halo"] * (1 + filt.eta),
+            f"fista words/iteration {fh.messages_per_iteration}")
+
+    # Grid: a 128 x 128 grid, the SGWT bank on lmax = 8, depth 2.
+    side, depth = GRID_SIDE, 2
+    gg = tgraph.grid_graph(side, device=dev)
+    gfilt = GraphFilter.from_multipliers(tmult.sgwt_filter_bank(8.0, 4), m, graph=gg, lmax=8.0)
+    gsig = torch.randn(side * side, f, generator=torch.Generator().manual_seed(5)).to(dev)
+    gmesh = StackedMesh(n_parts, dev)
+    gdense = gfilt.apply(gsig, backend="dense")
+    gout = gfilt.apply(gsig, backend="grid", mesh=gmesh, depth=depth)
+    # One neighbour round for T_1, then one per block of `depth` orders.
+    grid_rounds = 1 + math.ceil((m - 1) / depth)
+    expect_calls(gmesh, "grid apply", {"shift": 2 * grid_rounds})
+    errs["grid"] = maxdiff(gout, gdense)
+    require(errs["grid"] < AGREE_TOL, f"grid apply vs dense {errs['grid']:.2e}")
+    gmesh.reset_counts()
+    gadj = gfilt.adjoint(gdense, backend="grid", mesh=gmesh, depth=depth)
+    expect_calls(gmesh, "grid adjoint", {"shift": 2 * m})
+    errs["grid_adjoint"] = maxdiff(gadj, gfilt.adjoint(gdense, backend="dense"))
+    require(errs["grid_adjoint"] < AGREE_TOL, f"grid adjoint vs dense {errs['grid_adjoint']:.2e}")
+    grid_words = gfilt.messages_per_apply(backend="grid", mesh=gmesh, depth=depth)
+    require(grid_words == m * 2 * (n_parts - 1) * side, f"grid words {grid_words}")
+    say(f"[distributed] deploy eta={filt.eta} M={m}: max|x - dense| halo overlapped "
+        f"{errs['halo']:.2e}, "
+        f"halo serial {errs['halo_serial']:.2e}, allgather {errs['allgather']:.2e}, halo adjoint "
+        f"{errs['adjoint']:.2e}, FISTA-10 on halo x {errs['fista_x']:.2e} a {errs['fista_a']:.2e}; "
+        f"grid N={side * side} depth {depth} apply {errs['grid']:.2e} adjoint "
+        f"{errs['grid_adjoint']:.2e} (tol {AGREE_TOL:g}); exchanges per apply: halo {m} "
+        f"all_to_all (both schedules), allgather {m} all_gather, halo adjoint {m}, grid "
+        f"{grid_rounds} neighbour rounds = {2 * grid_rounds} shifts (1 + ceil((M-1)/d)), grid "
+        f"adjoint {2 * m} shifts; words/apply halo {words['halo']} = M x {plan.halo_words}, "
+        f"allgather {words['allgather']}, grid {grid_words} = M x 2(P-1) x side")
+
+    calls = {
+        "halo_overlapped": lambda: filt.apply(signal, backend="halo", mesh=mesh, overlap=True),
+        "halo_serial": lambda: filt.apply(signal, backend="halo", mesh=mesh, overlap=False),
+        "allgather": lambda: filt.apply(signal, backend="allgather", mesh=mesh),
+        "halo_adjoint": lambda: filt.adjoint(dense, backend="halo", mesh=mesh),
+        "grid": lambda: gfilt.apply(gsig, backend="grid", mesh=gmesh, depth=depth),
+        "grid_adjoint": lambda: gfilt.adjoint(gdense, backend="grid", mesh=gmesh, depth=depth),
+    }
+    times = {k: median_ms(fn) for k, fn in calls.items()}
+    busy = {k: device_busy_ms(fn) for k, fn in calls.items()}
+    fista_run = {k: median_ms(lambda k=k: solvers.fista(problem, n_iters=k, backend="halo",
+                                                        mesh=mesh)) for k in (1, 6)}
+    times["fista_iteration_halo"] = (fista_run[6] - fista_run[1]) / 5
+    say("[timing] distributed, median ms over 15 runs after 3 warm-ups, all P ranks on one "
+        f"card (not network times), N={n} F={f} eta={filt.eta} M={m} P={n_parts}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items()) + f" (grid N={side * side}); kernel time "
+        "per call (torch.profiler, 5 calls) and the device's idle share: " + ", ".join(
+            f"{k} {busy[k]:.3f} ({1 - busy[k] / times[k]:.0%} idle)" for k in busy))
+    return {"errs": errs, "times": times, "busy": busy, "plan_s": plan_s}
 
 
 def main() -> int:
@@ -568,21 +759,6 @@ def main() -> int:
     main_step += count.step
 
     # ---- 6. timing ------------------------------------------------------------
-    def median_ms(fn, reps=15, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            times.append(start.elapsed_time(stop))
-        return statistics.median(times)
-
     fp = f_deploy
     apply_ms = {
         "bsr_fused": median_ms(lambda: filt.apply(signal, backend="bsr")),
@@ -682,7 +858,7 @@ def main() -> int:
         f"{sb_by}: {step_bytes / 1e6:.1f} MB, {step_flops / 1e9:.3f} GFLOP; bf16 signal "
         f"{step_bf16_ms:.3f}; library addmm on sparse {lib_format} {step_lib_ms:.3f}, "
         f"max|addmm-plain| {float(lib_err.max()):.3e} (tol {F32_STEP_TOL:g}))")
-    st = solver_timing(median_ms, solved["deploy_problem"], bell, tiling.f_tile)
+    st = solver_timing(solved["deploy_problem"], bell, tiling.f_tile)
     say(f"[timing] cheb_union at the gram's shape (eta=1, M={gram_order}) "
         f"{st['gram_union_kernel']:.3f} ms, bound {gb:.4f} by {gb_by}: "
         f"{gram_bytes / 1e6:.1f} MB, {gram_flops / 1e9:.2f} GFLOP")
@@ -696,6 +872,12 @@ def main() -> int:
         f"{st['cg_rest_bsr']:.3f}); tol-mode host sync per iteration, median of 5 pairs of "
         f"40-iteration CG runs {statistics.median(st['tol_sync']):.4f} (pairs "
         + " ".join(f"{d:.4f}" for d in st["tol_sync"]) + ")")
+
+    # ---- 7. distributed (Algorithm 1 on a stacked 8-rank mesh) ----------------
+    u_before, s_before = cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches
+    distributed_phase(dev, filt, signal, solved["deploy_fista_dense"])
+    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
+            == (u_before, s_before), "the distributed phase launched a bsr kernel")
     say(smi)
 
     kernels = [

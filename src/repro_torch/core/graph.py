@@ -27,6 +27,8 @@ __all__ = [
     "random_sensor_graph",
     "connected_sensor_graph",
     "grid_graph",
+    "ring_graph",
+    "torus_graph",
     "laplacian",
     "degree_vector",
     "lmax_upper_bound",
@@ -152,6 +154,43 @@ def grid_graph(
         torch.as_tensor(a, dtype=dtype, device=dev),
         torch.as_tensor(coords, dtype=dtype, device=dev),
     )
+
+
+def ring_graph(
+    n: int,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device: str | torch.device | None = None,
+) -> SensorGraph:
+    """Unit-weight ring C_n — the device-topology graph for gossip on a
+    1-D mesh axis."""
+    dev = resolve_device(device)
+    a = np.zeros((n, n), dtype=np.float64)
+    idx = np.arange(n)
+    a[idx, (idx + 1) % n] = 1.0
+    a[(idx + 1) % n, idx] = 1.0
+    return SensorGraph(torch.as_tensor(a, dtype=dtype, device=dev))
+
+
+def torus_graph(
+    rows: int,
+    cols: int,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device: str | torch.device | None = None,
+) -> SensorGraph:
+    """2-D torus — device-topology graph of a 2-axis mesh."""
+    dev = resolve_device(device)
+    n = rows * cols
+    a = np.zeros((n, n), dtype=np.float64)
+    for r in range(rows):
+        for c in range(cols):
+            i = r * cols + c
+            for rr, cc in (((r + 1) % rows, c), (r, (c + 1) % cols)):
+                j = rr * cols + cc
+                if i != j:
+                    a[i, j] = a[j, i] = 1.0
+    return SensorGraph(torch.as_tensor(a, dtype=dtype, device=dev))
 
 
 def degree_vector(adjacency: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Unified graph-filter layer of the port: one ``GraphFilter`` surface,
 several backends (mirrors ``repro/filters``). Importing this package
-registers the ``dense``, ``bsr`` and ``matvec`` backends."""
+registers the ``dense``, ``bsr``, ``halo``, ``allgather``, ``grid`` and
+``matvec`` backends."""
 
 from repro_torch.filters.api import GraphFilter, bucket_size, shift_matvec_counts
 from repro_torch.filters.registry import (

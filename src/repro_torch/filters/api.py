@@ -183,8 +183,17 @@ class GraphFilter:
 
     # -- backend dispatch ------------------------------------------------
 
+    def _backend(self, name: str) -> registry.FilterBackend:
+        """Resolve a backend and enforce this filter's capability needs."""
+        be = registry.get_backend(name)
+        if self.n_shifts > 1:
+            registry.require_capability(be, "multi_shift")
+        return be
+
     def _backend_state(self, be: registry.FilterBackend, opts: dict) -> Any:
-        key = (be.name,) + tuple(
+        # Backends that share prepared operands (halo and allgather use
+        # the same partition plan) declare a common ``state_key``.
+        key = (getattr(be, "state_key", be.name),) + tuple(
             sorted((k, v) for k, v in opts.items() if k in be.prepare_opts)
         )
         if key not in self._states:
@@ -194,7 +203,7 @@ class GraphFilter:
     def prepare_backend(self, backend: str = "dense", **opts) -> Any:
         """Eagerly build (and cache) ``backend``'s prepared state, and
         return it (for ``bsr``, its ``.bell`` holds the Block-ELL operands)."""
-        return self._backend_state(registry.get_backend(backend), opts)
+        return self._backend_state(self._backend(backend), opts)
 
     def _signal(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -211,17 +220,20 @@ class GraphFilter:
         f : torch.Tensor
             (N,) or (N, F) signal(s).
         backend : str
-            ``dense``, ``bsr`` or ``matvec``.
+            ``dense``, ``bsr``, ``halo``, ``allgather``, ``grid`` or
+            ``matvec``.
         **opts
             Backend options (``block_size=``, ``fuse=``, ``f_tile=``,
-            ``krylov_dtype=`` for ``bsr``; ``matvec=`` for ``matvec``).
+            ``krylov_dtype=`` for ``bsr``; ``mesh=``, ``n_parts=`` for the
+            distributed backends, ``overlap=`` for ``halo``, ``depth=``
+            for ``grid``; ``matvec=`` for ``matvec``).
 
         Returns
         -------
         torch.Tensor
             (eta,) + f.shape stacked outputs.
         """
-        be = registry.get_backend(backend)
+        be = self._backend(backend)
         return be.apply(self, self._backend_state(be, opts), self._signal(f), **opts)
 
     def apply_panel(
@@ -246,7 +258,7 @@ class GraphFilter:
     def adjoint(self, a, *, backend: str = "dense", **opts) -> torch.Tensor:
         """Apply the adjoint ``Phi~* a`` (paper eq. 13); ``a`` is
         (eta,) + signal.shape, the result signal.shape."""
-        be = registry.get_backend(backend)
+        be = self._backend(backend)
         return be.adjoint(self, self._backend_state(be, opts), self._signal(a), **opts)
 
     def apply_series(self, f, series: np.ndarray, *, backend: str = "dense", **opts):
@@ -255,7 +267,7 @@ class GraphFilter:
         c = np.asarray(series, dtype=np.float64)
         if c.ndim != 1:
             raise ValueError(f"series must have ndim 1, got shape {c.shape}")
-        be = registry.get_backend(backend)
+        be = self._backend(backend)
         state = self._backend_state(be, opts)
         return be.apply(self, state, self._signal(f), coeffs=c[np.newaxis], **opts)[0]
 
@@ -271,14 +283,15 @@ class GraphFilter:
         backend: str = "dense",
         **opts,
     ) -> int:
-        """Scalar words exchanged between workers per ``Phi~ f``. Every
-        backend of this slice runs on one device, so it is 0."""
+        """Scalar words exchanged between ranks per ``Phi~ f`` of one
+        (N,) signal: 0 on the single-device backends, the backend's
+        communication model on ``halo``, ``allgather`` and ``grid``."""
         if order is not None and orders is not None:
             raise ValueError("pass order= or orders=, not both")
         if orders is None:
             orders = (int(order),) if order is not None else self.orders
         elif len(orders) != self.n_shifts:
             raise ValueError(f"{len(orders)} orders for {self.n_shifts} shifts")
-        be = registry.get_backend(backend)
+        be = self._backend(backend)
         state = self._backend_state(be, opts)
         return be.messages_per_apply(self, state, shift_matvec_counts(orders))

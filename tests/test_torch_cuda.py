@@ -167,3 +167,38 @@ def test_cg_on_bsr_launches_one_union_per_gram(cuda_device):
     dense = solvers.conjugate_gradient(problem, n_iters=100, tol=1e-5, backend="dense")
     assert abs(dense.iterations - res.iterations) <= 1
     torch.testing.assert_close(res.x, dense.x, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend,opts", [("halo", {"overlap": True}), ("halo", {"overlap": False}),
+                                          ("allgather", {})],
+                         ids=["halo", "halo-serial", "allgather"])
+def test_distributed_backends_on_cuda_match_dense(cuda_device, backend, opts):
+    from repro_torch.core.collectives import StackedMesh
+
+    solvers, filt, y = _solver_setting(cuda_device)
+    mesh = StackedMesh(8, cuda_device)
+    f = torch.stack([y, 2.0 * y], dim=1)
+    got = filt.apply(f, backend=backend, mesh=mesh, **opts)
+    kind = "all_to_all" if backend == "halo" else "all_gather"
+    assert mesh.calls[kind] == filt.order and got.device.type == "cuda"
+    torch.testing.assert_close(got, filt.apply(f, backend="dense"), rtol=1e-5, atol=1e-5)
+    a = filt.apply(f, backend="dense")
+    torch.testing.assert_close(filt.adjoint(a, backend=backend, mesh=mesh),
+                               filt.adjoint(a, backend="dense"), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_grid_backend_on_cuda_matches_dense(cuda_device, depth):
+    from repro_torch.core.collectives import StackedMesh
+
+    g = tgraph.grid_graph(32, device=cuda_device)
+    filt = GraphFilter.from_multipliers([tmult.tikhonov(1.0, 1), tmult.heat(0.5)], 12,
+                                        graph=g, lmax=8.0)
+    f = torch.randn(1024, 4, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    mesh = StackedMesh(8, cuda_device)
+    got = filt.apply(f, backend="grid", mesh=mesh, depth=depth)
+    assert mesh.calls["shift"] == 2 + 2 * -(-11 // depth)
+    torch.testing.assert_close(got, filt.apply(f, backend="dense"), rtol=1e-5, atol=1e-5)
+    a = filt.apply(f, backend="dense")
+    torch.testing.assert_close(filt.adjoint(a, backend="grid", mesh=mesh, depth=depth),
+                               filt.adjoint(a, backend="dense"), rtol=1e-5, atol=1e-5)

@@ -36,7 +36,7 @@ def test_port_imports_neither_jax_nor_reference():
         env={**os.environ, "PYTHONPATH": str(SRC)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15  # every module of the slice was imported
+    assert int(proc.stdout.strip()) >= 29  # every module of the slices was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -67,10 +67,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         interop.sensor_graph_from_numpy(np.zeros((2, 2)))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         interop.block_ell_from_numpy(np.zeros((1, 1, 8, 8)), np.zeros((1, 1)))
-    from repro_torch import quickstart
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tgraph.ring_graph(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tgraph.torus_graph(2, 2)
+    from repro_torch.core import collectives, distributed
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        quickstart.main()
+        collectives.StackedMesh(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.build_partition_plan(np.zeros((4, 4)), None, 2)
+    from repro_torch import distributed_denoising, distributed_wavelet_ista, quickstart
+
+    for module in (quickstart, distributed_denoising, distributed_wavelet_ista):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.main()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

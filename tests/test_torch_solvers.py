@@ -469,19 +469,18 @@ def test_solve_dispatch_and_errors_match_reference(small):
         assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
 
 
-def test_lasso_panel_program_errors_match_reference(small, monkeypatch):
+def test_lasso_panel_program_errors_match_reference(small):
     tf = interop.filter_from_numpy(small["jf"].coeffs, small["jf"].lmax, small["tg"])
     with pytest.raises(ValueError) as got:
         ts.lasso_panel_program(tf, method="cg")
     with pytest.raises(ValueError) as want:
         js.lasso_panel_program(small["jf"], method="cg")
     assert str(got.value) == str(want.value)
-    monkeypatch.setitem(tregistry._REGISTRY, "hostloop", _HostLoopDense())
     with pytest.raises(ValueError) as got:
-        ts.lasso_panel_program(tf, backend="hostloop")
+        ts.lasso_panel_program(tf, backend="allgather")  # non-traceable on both sides
     with pytest.raises(ValueError) as want:
-        js.lasso_panel_program(small["jf"], backend="allgather")  # non-traceable there
-    assert str(got.value).replace("'hostloop'", "'allgather'") == str(want.value)
+        js.lasso_panel_program(small["jf"], backend="allgather")
+    assert str(got.value) == str(want.value)
 
 
 def test_preconditioner_max_order_error_matches_reference(small):
@@ -516,7 +515,7 @@ def test_mu_vector_matches_reference(small):
 # ---------------------------------------------------------- registry ----
 
 
-@pytest.mark.parametrize("backend", ["dense", "bsr", "matvec"])
+@pytest.mark.parametrize("backend", ["dense", "bsr", "matvec", "halo", "allgather", "grid"])
 def test_capability_queries_agree_with_reference(backend):
     from repro_torch import filters as tfilters
 
@@ -529,7 +528,14 @@ def test_capability_queries_agree_with_reference(backend):
             assert getattr(jregistry, query)(backend)
     assert not tfilters.backend_supports_sparse(backend)
     assert not tfilters.backend_supports_multi_shift(backend)
-    assert jcaps(backend).traceable
+    if backend in ("halo", "allgather", "grid"):
+        # the distributed backends drive the host loop on both sides
+        assert not jcaps(backend).traceable
+        # the known gap until the multi-shift slice: the reference's halo
+        # runs joint filters, the port's does not yet
+        assert jregistry.backend_supports_multi_shift(backend) == (backend == "halo")
+    else:
+        assert jcaps(backend).traceable
 
 
 def test_problem_from_numpy_needs_one_of_y_and_b(small):
