@@ -61,7 +61,24 @@ Phases, each printing its own lines:
    backend on a 128 x 128 grid (depth 2) against dense, all within 2e-4,
    with every exchange count and word count checked exactly; then median
    CUDA-event ms of each, the kernel time per call from
-   ``torch.profiler`` and the device's idle share.
+   ``torch.profiler`` and the device's idle share;
+8. multi-shift (``GraphFilter.from_shifts``, two commuting shifts of a
+   time-vertex product: a sensor graph's Laplacian along the vertex axis,
+   a path's along the time axis), every run counted: at the tests' shape
+   (24 sensors x 6 samples) dense, bsr fused and stepwise and halo
+   (``StackedMesh(8)``) against a host float64 oracle built from the two
+   factor eigendecompositions, within 1e-5; at full width (the phase-4
+   model at 1024 sensors x a path of 8 samples, N = 8192, F = 256, the
+   SGWT bank at M_1 = 20 times heat at M_2 = 5) the same four within
+   2e-4, with exact launch counts (union M_1 + 1 per fused apply, 2 M_1 +
+   1 per gram; step M_2 (M_1 + 1) per stepwise apply; none on dense, halo
+   and the adjoint), exact halo exchanges and words per shift, the bsr
+   adjoint identity and gram against composition; each kernel against its
+   plain version at one innermost call's operands; a two-shift PCG on bsr
+   beside plain CG; then median CUDA-event ms of each joint call, its
+   kernel time from ``torch.profiler``, the device's idle share and the
+   synchronising operations it makes (none on a joint bsr call: the joint
+   coefficients are on the card once per tensor).
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -95,6 +112,11 @@ BSR_DENSE_TOL = 1e-4  # paper shape: bsr against dense
 SOLVER_X_TOL, SOLVER_HIST_TOL = 1e-5, 1e-4  # tests/test_solvers.py:128-138
 PAPER_SCALES, PAPER_MU, SOLVER_TOL = 3, 2.0, 1e-6
 N_PARTS, GRID_SIDE = 8, 128  # the distributed phase: ranks, grid side
+# The multi-shift phase: a time-vertex product of MS_SENSORS sensors and a
+# path of MS_T samples (N = 8192), orders (M_1, M_2) on the vertex and
+# time shifts; the small shape is the tests' (24 sensors x 6 samples).
+MS_SENSORS, MS_T, MS_ORDERS, MS_SMALL_TOL = 1024, 8, (ORDER, 5), 1e-5
+ADJOINT_RTOL, GRAM_TOL = 2e-5, 5e-4  # tests/test_multishift.py
 
 
 def say(msg: str) -> None:
@@ -144,6 +166,24 @@ def device_busy_ms(fn, runs=5):
     us = sum(getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
              for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
     return us / runs / 1e3
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of a call, ms: its bytes over the memory rate or its
+    operations over the f32 peak, whichever is larger, and which."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def union_work(nnz_l: int, tile_bytes: int, n: int, f: int, eta: int, order: int):
+    """Bytes and operations of one union apply: the tiles, the signal, the
+    coefficients and the (eta, N, F) output once each; per order the
+    nonzeros of L times F and the recurrence's elementwise terms, and the
+    eq. 11 combine."""
+    sig = n * f
+    nbytes = tile_bytes + sig * 4 + eta * (order + 1) * 4 + eta * sig * 4
+    flops = order * (2 * nnz_l * f + 4 * sig) + eta * (order + 1) * 2 * sig
+    return nbytes, flops
 
 
 class LaunchCounter:
@@ -537,6 +577,291 @@ def distributed_phase(dev, filt, signal, fista_dense, n_parts: int = N_PARTS) ->
     return {"errs": errs, "times": times, "busy": busy, "plan_s": plan_s}
 
 
+def product_shifts(gs, t: int, dev):
+    """The two shifts of a time-vertex product of sensor graph ``gs`` and
+    a path of ``t`` samples: ``A_G (x) I_T`` along the vertex axis and
+    ``I_N (x) A_T`` along the time axis, vertex ``s * t + j`` at (x_s,
+    y_s, j / t). Returns the shift graphs and the path's adjacency."""
+    import torch
+
+    from repro_torch.core import graph as tgraph
+
+    n = gs.n_vertices
+    ones = torch.ones(t - 1, device=dev)
+    path = torch.diag(ones, 1) + torch.diag(ones, -1)
+    coords = torch.cat([gs.coords.repeat_interleave(t, 0),
+                        (torch.arange(t, device=dev) / t).repeat(n)[:, None]], dim=1)
+    return [tgraph.SensorGraph(torch.kron(gs.adjacency, torch.eye(t, device=dev)), coords),
+            tgraph.SensorGraph(torch.kron(torch.eye(n, device=dev), path), coords)], path
+
+
+def product_oracle(filt, ag, at, x):
+    """Host float64 oracle of a two-shift filter on a time-vertex product:
+    ``U_G (vals o (U_G^T X U_T)) U_T^T`` on the (N, T, F) reshape of ``x``
+    from the two factor eigendecompositions (no (N T)^2 eigenbasis).
+    Returns (eta, N T, F)."""
+    import numpy as np
+
+    from repro_torch.core.chebyshev import cheb_eval_joint
+
+    ag, at = (np.asarray(a.cpu().numpy(), np.float64) for a in (ag, at))
+    wg, ug = np.linalg.eigh(np.diag(ag.sum(1)) - ag)
+    wt, ut = np.linalg.eigh(np.diag(at.sum(1)) - at)
+    vals = cheb_eval_joint(filt.coeffs, [np.maximum(wg, 0.0), np.maximum(wt, 0.0)],
+                           list(filt.shift_lmaxes))
+    xs = x.detach().cpu().numpy().astype(np.float64).reshape(len(wg), len(wt), -1)
+    xh = np.einsum("na,ntf,tb->abf", ug, xs, ut, optimize=True)
+    return np.stack([np.einsum("na,abf,tb->ntf", ug, vals[j][:, :, None] * xh, ut,
+                               optimize=True).reshape(len(wg) * len(wt), -1)
+                     for j in range(filt.eta)])
+
+
+def multishift_phase(dev, count: LaunchCounter, check_union, check_step) -> dict:
+    """Phase 8: multi-shift joint filters (``GraphFilter.from_shifts``) on
+    a time-vertex product — the tests' small shape, then the full width —
+    on dense, bsr (fused and stepwise) and halo against a host float64
+    oracle, every apply counted; the bsr adjoint identity and gram; each
+    kernel at one innermost call's operands; a two-shift PCG on bsr; and
+    the timing of each joint call with its device time and idle share."""
+    import numpy as np
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.core import chebyshev as tcheb
+    from repro_torch.core import graph as tgraph
+    from repro_torch.core import multipliers as tmult
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.filters import GraphFilter, shift_matvec_counts
+    from repro_torch.kernels import ref as tref
+
+    def err_to(oracle, out):
+        return float(np.abs(out.detach().cpu().numpy().astype(np.float64) - oracle).max())
+
+    # The tests' shape: 24 sensors x 6 samples, a heat/Tikhonov bank at
+    # M = 8 on the vertex shift, heat at M = 5 on the time shift.
+    gs = tgraph.connected_sensor_graph(torch.Generator().manual_seed(7), n=24, sigma=0.45,
+                                       kappa=0.5, device=dev)
+    shifts, path = product_shifts(gs, 6, dev)
+    lms = [float(g.lmax_bound()) for g in shifts]
+    small = GraphFilter.from_shifts(shifts, tcheb.separable_joint_coefficients([
+        tcheb.cheb_coefficients([tmult.heat(0.6), tmult.tikhonov(1.0, 1)], 8, lms[0]),
+        tcheb.cheb_coefficients([tmult.heat(1.2)], 5, lms[1])]), lmaxes=lms)
+    x = torch.randn(24 * 6, 3, generator=torch.Generator().manual_seed(8)).to(dev)
+    oracle = product_oracle(small, gs.adjacency, path, x)
+    small_counts = shift_matvec_counts(small.orders)
+    small_errs = {}
+    for name, backend, opts, launches in (
+            ("dense", "dense", {}, (0, 0)),
+            ("bsr", "bsr", {"fuse": True}, (small.orders[0] + 1, 0)),
+            ("bsr_stepwise", "bsr", {"fuse": False}, (0, small_counts[1])),
+            ("halo", "halo", {"mesh": StackedMesh(N_PARTS, dev)}, (0, 0))):
+        out, u, st = count(lambda: small.apply(x, backend=backend, **opts))
+        expect_launches(f"multishift small {name}", (u, st), launches)
+        small_errs[name] = err_to(oracle, out)
+        require(small_errs[name] < MS_SMALL_TOL,
+                f"multishift small {name} vs oracle {small_errs[name]:.2e}")
+    say(f"[multishift] small N={24 * 6} (24 sensors x 6 samples) orders {small.orders} eta "
+        f"{small.eta}: max|x - float64 oracle| " + ", ".join(
+            f"{k} {v:.2e}" for k, v in small_errs.items()) + f" (tol {MS_SMALL_TOL:g})")
+
+    # Full width: the Sec. V-B model at 1024 sensors (sigma, kappa scaled
+    # by sqrt(500/1024) as in phase 4) x a path of 8 samples, N = 8192.
+    t0 = time.perf_counter()
+    scale = math.sqrt(PAPER_N / MS_SENSORS)
+    gs = tgraph.random_sensor_graph(torch.Generator().manual_seed(21), MS_SENSORS,
+                                    0.074 * scale, 0.075 * scale, device=dev)
+    shifts, path = product_shifts(gs, MS_T, dev)
+    lms = [float(g.lmax_bound()) for g in shifts]
+    m1, m2 = MS_ORDERS
+    coeffs = tcheb.separable_joint_coefficients([
+        tcheb.cheb_coefficients(tmult.sgwt_filter_bank(lms[0], 4), m1, lms[0]),
+        tcheb.cheb_coefficients([tmult.heat(1.2)], m2, lms[1])])
+    filt = GraphFilter.from_shifts(shifts, coeffs, lmaxes=lms)
+    n = MS_SENSORS * MS_T
+    signal = torch.randn(n, DEPLOY_F, generator=torch.Generator().manual_seed(22)).to(dev)
+    state = filt.prepare_backend("bsr")
+    filt.prepare_backend("dense")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mesh = StackedMesh(N_PARTS, dev)
+    t0 = time.perf_counter()
+    ctx = filt.prepare_backend("halo", mesh=mesh)
+    plan_s = time.perf_counter() - t0
+    counts = shift_matvec_counts(filt.orders)
+    inner = state.bells[-1]
+    say(f"[multishift] deploy N={n} ({MS_SENSORS} sensors x {MS_T} samples) F={DEPLOY_F} "
+        f"eta={filt.eta} orders {filt.orders} lmaxes {lms[0]:.3f}, {lms[1]:.3f}: |E| vertex "
+        f"shift {shifts[0].n_edges} time shift {shifts[1].n_edges}; bsr k_max per shift "
+        f"{[b.k_max for b in state.bells]}, nnz tiles {[b.nnz_blocks for b in state.bells]}; "
+        f"setup {setup_s:.1f} s; halo plans P={N_PARTS}: halo_words per shift "
+        f"{[p.halo_words for p in ctx.plans]}, max_halo {[p.max_halo for p in ctx.plans]}, "
+        f"built on the host in {plan_s:.2f} s; shift_matvec_counts {counts}")
+
+    # The counted runs: one joint apply on each route, the adjoint and the gram.
+    outs = {}
+    mesh.reset_counts()
+    for name, call, launches in (
+            ("dense", lambda: filt.apply(signal, backend="dense"), (0, 0)),
+            ("bsr", lambda: filt.apply(signal, backend="bsr"), (m1 + 1, 0)),
+            ("bsr_stepwise", lambda: filt.apply(signal, backend="bsr", fuse=False),
+             (0, counts[1])),
+            ("halo", lambda: filt.apply(signal, backend="halo", mesh=mesh), (0, 0))):
+        out, u, st = count(call)
+        torch.cuda.synchronize()
+        expect_launches(f"multishift deploy {name}", (u, st), launches)
+        require(out.shape == (filt.eta, n, DEPLOY_F) and bool(torch.isfinite(out).all()),
+                f"multishift {name} output")
+        outs[name] = out
+    halo_calls = dict(mesh.calls)
+    elements = sum(c * N_PARTS * (N_PARTS - 1) * p.max_halo * DEPLOY_F
+                   for c, p in zip(counts, ctx.plans))
+    require(halo_calls == {"all_to_all": sum(counts)},
+            f"multishift halo exchanges {halo_calls}, want {sum(counts)}")
+    require(mesh.elements["all_to_all"] == elements,
+            f"multishift halo elements {mesh.elements['all_to_all']}, want {elements}")
+    words = filt.messages_per_apply(backend="halo", mesh=mesh)
+    want_words = sum(c * p.halo_words for c, p in zip(counts, ctx.plans))
+    require(words == want_words, f"multishift halo words {words}, want {want_words}")
+    per_shift = [filt.messages_per_apply(orders=o, backend="halo", mesh=mesh)
+                 for o in ((m1, 0), (0, m2))]
+    require(per_shift == [counts[0] * ctx.plans[0].halo_words,
+                          m2 * ctx.plans[1].halo_words], f"per-shift words {per_shift}")
+    oracle = product_oracle(filt, gs.adjacency, path, signal)
+    errs = {k: err_to(oracle, v) for k, v in outs.items()}
+    for k, v in errs.items():
+        require(v < AGREE_TOL, f"multishift deploy {k} vs oracle {v:.2e}")
+    del oracle
+    a = torch.randn(filt.eta, n, DEPLOY_F, generator=torch.Generator().manual_seed(23)).to(dev)
+    back, u, st = count(lambda: filt.adjoint(a, backend="bsr"))
+    expect_launches("multishift bsr adjoint", (u, st), (0, 0))
+    lhs = float((outs["bsr"].double() * a.double()).sum())
+    rhs = float((signal.double() * back.double()).sum())
+    adj_rel = abs(lhs - rhs) / abs(rhs)
+    require(adj_rel <= ADJOINT_RTOL, f"multishift bsr adjoint identity {adj_rel:.2e}")
+    gram, u, st = count(lambda: filt.gram(signal, backend="bsr"))
+    expect_launches("multishift bsr gram", (u, st), (2 * m1 + 1, 0))
+    composed = filt.adjoint(outs["bsr"], backend="bsr")
+    gram_err = (gram - composed).abs()
+    require(bool((gram_err <= GRAM_TOL + GRAM_TOL * composed.abs()).all()),
+            f"multishift bsr gram vs composition {float(gram_err.max()):.2e}")
+    say(f"[multishift] deploy max|x - float64 oracle| " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {AGREE_TOL:g}); bsr adjoint "
+        f"identity rel {adj_rel:.2e} (rtol {ADJOINT_RTOL:g}); bsr gram vs adjoint(apply) max "
+        f"{float(gram_err.max()):.2e} (tol {GRAM_TOL:g}); launches union {m1 + 1} per fused "
+        f"apply = prod_(s<R)(M_s+1), {2 * m1 + 1} per gram, step {counts[1]} per stepwise "
+        f"apply, 0 on dense, halo and the adjoint; halo {sum(counts)} exchanges per apply "
+        f"{halo_calls}, words per apply {words} = sum_r count_r x halo_words_r (vertex shift "
+        f"alone {per_shift[0]}, time shift alone {per_shift[1]})")
+
+    # Each kernel at one innermost call's operands: a Krylov vector of the
+    # vertex shift (T_1 f in the kernel layout) against an (eta, M_2+1)
+    # coefficient slice, on the time shift's tiles.
+    fp = torch.nn.functional.pad(signal[state.perm], (0, 0, 0, state.n_pad - n)).contiguous()
+    outer = state.bells[0]
+    t1 = (tref.bsr_matvec_ref(outer, fp) - (lms[0] / 2.0) * fp) / (lms[0] / 2.0)
+    c_slice = np.ascontiguousarray(coeffs[:, 1, :])
+    union_err = check_union(inner.blocks, inner.cols, t1, c_slice, lms[1],
+                            f"multishift inner eta={filt.eta} M={m2}")
+    step_err = check_step(inner.blocks, inner.cols, t1, fp, lms[1] / 2.0, "multishift inner")
+
+    # A two-shift PCG on bsr: one column, reg 1e-3, the joint fit from order 6.
+    b = signal[:, :1].contiguous()
+    prob = solvers.GramProblem(filt=filt, b=b, reg=1e-3)
+    pre = solvers.cheb_preconditioner(prob, order=6, backend="bsr")
+    require(pre.rate < 1.0, f"multishift preconditioner rate {pre.rate:.4f}")
+    k1 = pre.orders[0]
+    pcg, u, st = count(lambda: solvers.conjugate_gradient(
+        prob, n_iters=300, tol=SOLVER_TOL, backend="bsr", preconditioner=pre))
+    require(pcg.converged, f"multishift pcg did not converge ({pcg.history[-1]:.2e})")
+    expect_launches("multishift pcg", (u, st), ((pcg.iterations + 1) * (2 * m1 + 1 + k1 + 1), 0))
+    cg, u, st = count(lambda: solvers.conjugate_gradient(prob, n_iters=1000, tol=SOLVER_TOL,
+                                                         backend="bsr"))
+    expect_launches("multishift cg", (u, st), ((cg.iterations + 1) * (2 * m1 + 1), 0))
+    require(cg.converged and pcg.iterations < cg.iterations,
+            f"multishift cg {cg.iterations} ({cg.converged}), pcg {pcg.iterations}")
+    scale_x = float(cg.x.abs().max())
+    d_x = float((pcg.x - cg.x).abs().max())
+    say(f"[multishift] deploy two-shift PCG on bsr, one column, reg 1e-3 tol {SOLVER_TOL:g}: "
+        f"fit orders {pre.orders} rate {pre.rate:.4f}, {pcg.iterations} iterations (plain CG "
+        f"{cg.iterations}), max|x_pcg - x_cg| {d_x:.2e} of max|x| {scale_x:.1f}; launches union "
+        f"(iterations + 1) x ({2 * m1 + 1} + {k1 + 1}) and (iterations + 1) x {2 * m1 + 1}")
+    return {"filt": filt, "signal": signal, "a": a, "mesh": mesh, "state": state,
+            "union_err": union_err, "step_err": step_err, "t1": t1, "c_slice": c_slice,
+            "lmax_inner": lms[1], "errs": errs, "pcg": pcg.iterations, "cg": cg.iterations}
+
+
+def synchronising_ops(fn) -> int:
+    """Synchronising CUDA operations in one call of ``fn`` (a blocking
+    host-to-device copy is one), counted by ``torch.cuda``'s sync debug
+    mode, which warns at each."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def multishift_timing(ms: dict) -> dict:
+    """Median CUDA-event ms of each joint call at full width, its kernel
+    time per call from ``torch.profiler`` and the device's idle share, and
+    the union kernel alone at one innermost call's operands beside its
+    plain version and bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cheb_bsr, ref as tref
+
+    filt, signal, a, mesh = ms["filt"], ms["signal"], ms["a"], ms["mesh"]
+    calls = {
+        "dense": lambda: filt.apply(signal, backend="dense"),
+        "bsr": lambda: filt.apply(signal, backend="bsr"),
+        "bsr_stepwise": lambda: filt.apply(signal, backend="bsr", fuse=False),
+        "halo": lambda: filt.apply(signal, backend="halo", mesh=mesh),
+        "bsr_adjoint": lambda: filt.adjoint(a, backend="bsr"),
+        "bsr_gram": lambda: filt.gram(signal, backend="bsr"),
+    }
+    reps = {"dense": 5, "bsr_adjoint": 7}
+    times = {k: median_ms(fn, reps=reps.get(k, 15)) for k, fn in calls.items()}
+    busy = {k: device_busy_ms(fn, runs=3) for k, fn in calls.items()}
+    # The count sees a blocking upload (the control), and a joint bsr call
+    # makes none: its coefficients are on the card once per tensor.
+    control = synchronising_ops(lambda: torch.as_tensor(np.ones(4), device=signal.device))
+    syncs = {k: synchronising_ops(fn) for k, fn in calls.items()}
+    require(control >= 1, f"the sync count missed a blocking upload ({control})")
+    require(syncs["bsr"] == syncs["bsr_stepwise"] == syncs["bsr_gram"] == syncs["bsr_adjoint"]
+            == 0, f"synchronising operations in a joint bsr call: {syncs}")
+    inner, t1, c, lm = ms["state"].bells[-1], ms["t1"], ms["c_slice"], ms["lmax_inner"]
+    kernel_ms = median_ms(lambda: cheb_bsr.cheb_union_cuda(inner.blocks, inner.cols, t1,
+                                                           coeffs=c, lmax=lm))
+    plain_ms = median_ms(lambda: tref.cheb_union_ref(inner.blocks, inner.cols, t1, c, lm))
+    nnz = int(torch.count_nonzero(inner.blocks))
+    tiles = inner.blocks.numel() * 4 + inner.cols.numel() * 4
+    ib, ib_by = bound(*union_work(nnz, tiles, t1.shape[0], t1.shape[1], c.shape[0],
+                                  c.shape[1] - 1))
+    launches = filt.orders[0] + 1
+    say(f"[timing] multishift, median ms at N={signal.shape[0]} F={signal.shape[1]} "
+        f"eta={filt.eta} orders {filt.orders}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items()) + "; kernel time per call "
+        "(torch.profiler, 3 calls) and the device's idle share: " + ", ".join(
+            f"{k} {busy[k]:.3f} ({1 - busy[k] / times[k]:.0%} idle)" for k in busy)
+        + f"; synchronising operations per call (sync debug mode; a blocking upload "
+        f"counts {control}): " + ", ".join(f"{k} {v}" for k, v in syncs.items())
+        + f"; union kernel at one innermost call (eta={c.shape[0]}, M={c.shape[1] - 1}, "
+        f"{launches} per joint apply) {kernel_ms:.4f} ms, plain {plain_ms:.3f}, bound "
+        f"{ib:.4f} by {ib_by}")
+    return {"times": times, "busy": busy, "syncs": syncs, "inner_ms": kernel_ms, "inner_plain_ms": plain_ms,
+            "inner_bound_ms": ib, "inner_bound_by": ib_by}
+
+
 def main() -> int:
     import torch
 
@@ -835,21 +1160,13 @@ def main() -> int:
     nnz_l = int(torch.count_nonzero(bell.blocks))
     tile_bytes = bell.blocks.numel() * 4 + bell.cols.numel() * 4
     sig = n_pad * DEPLOY_F
-    eta = filt.eta
-    union_bytes = tile_bytes + sig * 4 + filt.coeffs.size * 4 + eta * sig * 4
-    union_flops = ORDER * (2 * nnz_l * DEPLOY_F + 4 * sig) + eta * (ORDER + 1) * 2 * sig
+    union_bytes, union_flops = union_work(nnz_l, tile_bytes, n_pad, DEPLOY_F, filt.eta, ORDER)
     step_bytes = tile_bytes + 3 * sig * 4
     step_flops = 2 * nnz_l * DEPLOY_F + 5 * sig
-
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
-
     ub, ub_by = bound(union_bytes, union_flops)
     # The solvers' gram: one union apply at eta = 1 and order 2M.
     gram_order = 2 * ORDER
-    gram_bytes = tile_bytes + sig * 4 + (gram_order + 1) * 4 + sig * 4
-    gram_flops = gram_order * (2 * nnz_l * DEPLOY_F + 4 * sig) + (gram_order + 1) * 2 * sig
+    gram_bytes, gram_flops = union_work(nnz_l, tile_bytes, n_pad, DEPLOY_F, 1, gram_order)
     gb, gb_by = bound(gram_bytes, gram_flops)
     sb, sb_by = bound(step_bytes, step_flops)
     say(f"[timing] cheb_union kernel {union_ms:.3f} ms (plain {union_plain_ms:.3f}, bound "
@@ -878,6 +1195,20 @@ def main() -> int:
     distributed_phase(dev, filt, signal, solved["deploy_fista_dense"])
     require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
             == (u_before, s_before), "the distributed phase launched a bsr kernel")
+
+    # ---- 8. multi-shift joint filters, each run counted ------------------------
+    ms_count = LaunchCounter(cheb_bsr)
+    ms = multishift_phase(dev, ms_count, check_union, check_step)
+    union_err = max(union_err, ms["union_err"])
+    step_err = max(step_err, ms["step_err"])
+    require(ms_count.union > 0 and ms_count.step > 0,
+            "a kernel of the multi-shift path was never launched")
+    say(f"[multishift] launches in the counted runs: cheb_union {ms_count.union}, "
+        f"cheb_step {ms_count.step}")
+    main_union += ms_count.union
+    main_step += ms_count.step
+    mst = multishift_timing(ms)
+    ms_orders = ms["filt"].orders
     say(smi)
 
     kernels = [
@@ -890,6 +1221,11 @@ def main() -> int:
             "plain_ms": union_plain_ms,
             "bound_ms": ub, "bound_by": ub_by, "library_ms": None,
             "gram_ms": st["gram_union_kernel"], "gram_bound_ms": gb, "gram_bound_by": gb_by,
+            "multishift_launches": ms_count.union,
+            "multishift_launches_per_apply": ms_orders[0] + 1,
+            "multishift_inner_ms": mst["inner_ms"], "multishift_inner_plain_ms":
+                mst["inner_plain_ms"], "multishift_inner_bound_ms": mst["inner_bound_ms"],
+            "multishift_inner_bound_by": mst["inner_bound_by"],
         },
         {
             "name": "cheb_step", "route": "cuda",
@@ -901,6 +1237,8 @@ def main() -> int:
             "bound_ms": sb, "bound_by": sb_by, "library_ms": step_lib_ms,
             "library_call": f"torch.addmm on sparse {lib_format}", "bf16_ms": step_bf16_ms,
             "bf16_device_ms": device_ms.get("cheb_step_strip_kernel bf16"),
+            "multishift_launches": ms_count.step,
+            "multishift_launches_per_apply": ms_orders[1] * (ms_orders[0] + 1),
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,6 @@
 """Shifted-Chebyshev approximation of graph Fourier multipliers.
 
-Mirrors ``repro/core/chebyshev.py`` (single-shift subset; the ``*_joint``
-recurrences and joint coefficient builders come with the multi-shift
-port):
+Mirrors ``repro/core/chebyshev.py``:
 
 * eq. (8)  — Chebyshev coefficients ``c_{j,k}`` by Chebyshev--Gauss
   quadrature (host numpy float64, identical to the reference),
@@ -15,7 +13,12 @@ port):
 * the inverse fit ``q ~= 1/(h + reg)`` behind ``solvers/inverse.py``
   (host numpy float64, identical to the reference; it evaluates ``h``
   through the tensor-grid evaluator ``cheb_eval_joint`` even for one
-  shift).
+  shift),
+* multi-shift joint polynomials of R commuting shifts (arXiv:2003.11152):
+  the joint coefficient functions (host numpy float64, identical to the
+  reference) and the joint recurrences ``cheb_apply_joint`` /
+  ``cheb_adjoint_apply_joint``, which peel the leading shift axes and run
+  a single-shift apply at the innermost level.
 
 Coefficients are float64 numpy; every apply casts them explicitly to the
 signal's dtype and device, as the reference does, so a float32 signal is
@@ -37,8 +40,13 @@ __all__ = [
     "cheb_apply_krylov",
     "cheb_apply_dense",
     "cheb_adjoint_apply",
+    "cheb_apply_joint",
+    "cheb_adjoint_apply_joint",
     "product_coefficients",
     "gram_coefficients",
+    "joint_product_coefficients",
+    "joint_gram_coefficients",
+    "separable_joint_coefficients",
     "inverse_coefficients",
     "inverse_fixed_point_rate",
 ]
@@ -147,7 +155,9 @@ def _cast_coeffs(coeffs, like: torch.Tensor) -> torch.Tensor:
 
 
 def _alpha(lmax, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(float(lmax), dtype=like.dtype, device=like.device) / 2.0
+    """``lmax / 2`` as a 0-d tensor of ``like``'s dtype, made on its device
+    (a fill, not a host-to-device copy, which would synchronise)."""
+    return torch.full((), float(lmax), dtype=like.dtype, device=like.device) / 2.0
 
 
 def _outer(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -248,6 +258,126 @@ def cheb_adjoint_apply(
     return acc
 
 
+# ---- multi-shift (joint) polynomial filters --------------------------------
+#
+# A joint filter over R commuting shifts (S_1, ..., S_R) is
+#   P = sum_{k_1..k_R} c[j, k_1, .., k_R] sigma_{k_1} Tbar_{k_1}(S_1) ...
+#       sigma_{k_R} Tbar_{k_R}(S_R)
+# with the half convention per axis (sigma_0 = 1/2). Evaluation recurses
+# over the shift axes: shift r's recurrence restarts once per outer Krylov
+# vector, so it performs M_r * prod_{s<r} (M_s + 1) matvecs.
+
+
+def cheb_apply_joint(
+    matvecs: Sequence[Matvec],
+    f: torch.Tensor,
+    coeffs,
+    lmaxes: Sequence[float],
+    *,
+    inner: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Apply a joint polynomial of R commuting shifts: ``P(S_1..S_R) f``.
+
+    Args:
+      matvecs: R linear maps, ``matvecs[r](v) = S_r @ v`` for v shaped
+        like ``f``.
+      f: (N,) or (N, F) signal(s).
+      coeffs: (eta, M_1+1, ..., M_R+1) joint coefficient tensor.
+      lmaxes: per-shift spectrum bounds.
+      inner: optional innermost level, ``inner(v, c)`` for a Krylov
+        vector ``v`` of the outer shifts and a contiguous (eta, M_R+1)
+        coefficient slice, returning ``(eta,) + v.shape``; the default is
+        ``cheb_apply(matvecs[-1], v, c, lmaxes[-1])``. The ``bsr`` backend
+        passes its union-kernel dispatch here.
+
+    Returns:
+      (eta,) + f.shape stacked outputs; for R = 1 exactly ``cheb_apply``.
+    """
+    n_shifts = len(matvecs)
+    coeffs = _cast_coeffs(coeffs, f)
+    if coeffs.ndim != n_shifts + 1:
+        raise ValueError(
+            f"joint coeffs must have ndim R+1 = {n_shifts + 1} "
+            f"(eta leading), got shape {tuple(coeffs.shape)}"
+        )
+    if len(lmaxes) != n_shifts:
+        raise ValueError(f"{len(lmaxes)} lmaxes for {n_shifts} shifts")
+    if inner is None:
+        def inner(v, c):
+            return cheb_apply(matvecs[-1], v, c, lmaxes[-1])
+    if n_shifts == 1:
+        return inner(f, coeffs.contiguous())
+    # eta just before the last axis: peeling the leading shift axes leaves
+    # each innermost call a contiguous (eta, M_R+1) slice.
+    ct = torch.movedim(coeffs, 0, -2).contiguous()
+
+    def rec(v: torch.Tensor, c: torch.Tensor, level: int) -> torch.Tensor:
+        if level == n_shifts - 1:
+            return inner(v, c)
+        mv = matvecs[level]
+        alpha = _alpha(lmaxes[level], f)
+        t0 = v
+        t1 = (mv(v) - alpha * v) / alpha
+        # per-axis half convention: the k = 0 Krylov vector enters with 1/2
+        acc = 0.5 * rec(t0, c[0], level + 1) + rec(t1, c[1], level + 1)
+        t_prev1, t_prev2 = t1, t0
+        for k in range(2, c.shape[0]):
+            t_k = (2.0 / alpha) * (mv(t_prev1) - alpha * t_prev1) - t_prev2
+            acc = acc + rec(t_k, c[k], level + 1)
+            t_prev1, t_prev2 = t_k, t_prev1
+        return acc
+
+    return rec(f, ct, 0)
+
+
+def cheb_adjoint_apply_joint(
+    matvecs: Sequence[Matvec],
+    a: torch.Tensor,
+    coeffs,
+    lmaxes: Sequence[float],
+) -> torch.Tensor:
+    """Joint adjoint ``P* a`` for ``a`` shaped (eta,) + signal.shape.
+
+    Commuting symmetric shifts make each joint term symmetric, so the
+    adjoint runs the same per-axis recurrences with the eta blocks stacked
+    along a trailing axis and contracts against the coefficients at the
+    innermost level (``cheb_adjoint_apply``).
+    """
+    n_shifts = len(matvecs)
+    coeffs = _cast_coeffs(coeffs, a)
+    if coeffs.ndim != n_shifts + 1:
+        raise ValueError(
+            f"joint coeffs must have ndim R+1 = {n_shifts + 1}, "
+            f"got shape {tuple(coeffs.shape)}"
+        )
+    if a.shape[0] != coeffs.shape[0]:
+        raise ValueError(f"adjoint input has {a.shape[0]} blocks, coeffs {coeffs.shape[0]}")
+    if n_shifts == 1:
+        return cheb_adjoint_apply(matvecs[0], a, coeffs, lmaxes[0])
+    ct = torch.movedim(coeffs, 0, -1)  # (M_1+1, ..., M_R+1, eta)
+    v0 = torch.movedim(a, 0, -1)  # (N, [F,] eta)
+
+    def rec(v: torch.Tensor, c: torch.Tensor, level: int) -> torch.Tensor:
+        if level == n_shifts - 1:
+            return cheb_adjoint_apply(
+                matvecs[level], torch.movedim(v, -1, 0), torch.movedim(c, -1, 0),
+                lmaxes[level],
+            )
+        mv = matvecs[level]
+        alpha = _alpha(lmaxes[level], a)
+        t0 = v
+        t1 = (mv(v) - alpha * v) / alpha
+        acc = 0.5 * rec(t0, c[0], level + 1) + rec(t1, c[1], level + 1)
+        t_prev1, t_prev2 = t1, t0
+        for k in range(2, c.shape[0]):
+            t_k = (2.0 / alpha) * (mv(t_prev1) - alpha * t_prev1) - t_prev2
+            acc = acc + rec(t_k, c[k], level + 1)
+            t_prev1, t_prev2 = t_k, t_prev1
+        return acc
+
+    return rec(v0, ct, 0)
+
+
 def product_coefficients(c1: np.ndarray, c2: np.ndarray) -> np.ndarray:
     """Coefficients of the product of two Chebyshev series (half-first
     convention in and out), via ``T_k T_l = (T_{k+l} + T_{|k-l|}) / 2``."""
@@ -272,6 +402,82 @@ def gram_coefficients(coeffs: np.ndarray) -> np.ndarray:
     out = np.zeros(2 * (c.shape[1] - 1) + 1)
     for j in range(c.shape[0]):
         out += product_coefficients(c[j], c[j])
+    return out
+
+
+def _halve_axis0(c: np.ndarray, axes: Sequence[int]) -> np.ndarray:
+    """Half-convention -> plain coefficients along the given axes."""
+    c = np.array(c, dtype=np.float64)
+    for ax in axes:
+        sl = [slice(None)] * c.ndim
+        sl[ax] = 0
+        c[tuple(sl)] *= 0.5
+    return c
+
+
+def joint_product_coefficients(c1: np.ndarray, c2: np.ndarray) -> np.ndarray:
+    """Joint-tensor analog of :func:`product_coefficients`: the
+    (2M_1+1, ..., 2M_R+1) coefficients of the product of two
+    (M_1+1, ..., M_R+1) series (half convention per axis), applying
+    ``T_k T_l = (T_{k+l} + T_{|k-l|}) / 2`` on every axis."""
+    a = _halve_axis0(np.atleast_1d(c1), range(np.ndim(c1)))
+    b = _halve_axis0(np.atleast_1d(c2), range(np.ndim(c2)))
+    n_shifts = a.ndim
+    if b.ndim != n_shifts:
+        raise ValueError(f"rank mismatch: {a.shape} vs {b.shape}")
+    # Outer tensor over (k_1..k_R, l_1..l_R), then fold each (k_r, l_r)
+    # pair into one m_r axis with the 1-D product identity.
+    t = np.multiply.outer(a, b)
+    for r in range(n_shifts):
+        # After r folds, t has axes (m_1..m_r, k_{r+1}..k_R, l_{r+1}..l_R);
+        # the current k axis is at r, the matching l axis at n_shifts.
+        t = np.moveaxis(t, (r, n_shifts), (0, 1))
+        k_dim, l_dim = t.shape[0], t.shape[1]
+        folded = np.zeros((k_dim + l_dim - 1,) + t.shape[2:])
+        for k in range(k_dim):
+            for l in range(l_dim):
+                folded[k + l] += 0.5 * t[k, l]
+                folded[abs(k - l)] += 0.5 * t[k, l]
+        t = np.moveaxis(folded, 0, r)
+    # plain -> half convention on every axis
+    out = t
+    for ax in range(n_shifts):
+        sl = [slice(None)] * out.ndim
+        sl[ax] = 0
+        out[tuple(sl)] *= 2.0
+    return out
+
+
+def joint_gram_coefficients(coeffs: np.ndarray) -> np.ndarray:
+    """Joint coefficients of ``P* P = sum_j p_j(S_1..S_R)^2``: (eta,
+    M_1+1, ..., M_R+1) -> (2M_1+1, ..., 2M_R+1); for R = 1 exactly
+    :func:`gram_coefficients`."""
+    c = np.asarray(coeffs, dtype=np.float64)
+    out = np.zeros(tuple(2 * (m - 1) + 1 for m in c.shape[1:]))
+    for j in range(c.shape[0]):
+        out += joint_product_coefficients(c[j], c[j])
+    return out
+
+
+def separable_joint_coefficients(factors: Sequence[np.ndarray]) -> np.ndarray:
+    """Joint tensor of a separable multiplier ``g(x_1..x_R) = prod g_r(x_r)``.
+
+    Each factor is the (eta, M_r+1) or (M_r+1,) half-convention series of
+    ``g_r``; their per-j outer product is the half-convention joint tensor
+    (eta, M_1+1, ..., M_R+1). Multi-multiplier factors must share eta.
+    """
+    mats = [np.atleast_2d(np.asarray(f, dtype=np.float64)) for f in factors]
+    eta = max(m.shape[0] for m in mats)
+    for m in mats:
+        if m.shape[0] not in (1, eta):
+            raise ValueError("factors must share eta (or be single)")
+    out = None
+    for m in mats:
+        m = np.broadcast_to(m, (eta,) + m.shape[1:])
+        if out is None:
+            out = m
+        else:
+            out = np.einsum("j...,jk->j...k", out, m)
     return out
 
 

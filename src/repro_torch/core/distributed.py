@@ -1,7 +1,6 @@
 """Distributed application of Chebyshev-approximated operators (paper Sec. IV).
 
-Mirrors ``repro/core/distributed.py`` for one shift: Algorithm 1 over P
-ranks. Vertices are partitioned across ranks; every Chebyshev order
+Mirrors ``repro/core/distributed.py``: Algorithm 1 over P ranks. Vertices are partitioned across ranks; every Chebyshev order
 exchanges **only partition-boundary vertex values** (the halo), the mesh
 analog of the paper's "transmit (Tbar_{k-1}(L) f)_n to all neighbours".
 
@@ -16,6 +15,10 @@ analog of the paper's "transmit (Tbar_{k-1}(L) f)_n to all neighbours".
 * the grid schedules: a matrix-free stencil on row slabs
   (:func:`grid_slab_matvec`) and the depth-d communication-avoiding
   recurrence (:func:`grid_cheb_apply_ca`).
+* multi-shift joint filters (:class:`MultiShiftGraphContext`): one plan
+  per shift over one shared vertex layout
+  (:func:`build_shift_partition_plans`); each shift's matvec exchanges
+  its own halo, on the serial schedule.
 
 The collectives come from :mod:`repro_torch.core.collectives`: every
 per-rank tensor carries a leading rank axis (P on a ``StackedMesh``, 1 in
@@ -24,9 +27,7 @@ a ``GroupMesh``), and the local products are batched matmuls over it.
 The partition plan is built on the host in float64 numpy exactly as the
 reference builds it, so every table equals the reference's bit for bit;
 the tables then live on the plan's device. Not ported yet:
-``build_shift_partition_plans`` and ``MultiShiftGraphContext`` (the
-multi-shift slice) and ``repair_partition_plan`` (the dynamic-graph
-slice).
+``repair_partition_plan`` (the dynamic-graph slice).
 """
 
 from __future__ import annotations
@@ -45,11 +46,13 @@ from repro_torch.device import resolve_device
 __all__ = [
     "PartitionPlan",
     "build_partition_plan",
+    "build_shift_partition_plans",
     "plan_row_slabs",
     "halo_matvec",
     "halo_cheb_apply_overlapped",
     "allgather_matvec",
     "DistributedGraphContext",
+    "MultiShiftGraphContext",
     "grid_slab_matvec",
     "grid_allgather_matvec",
     "grid_cheb_apply_ca",
@@ -272,6 +275,37 @@ def build_partition_plan(
     c = None if coords is None else _host(coords)
     order, boundary_counts, n_local = _partition_layout(a, c, n_parts)
     return _plan_tables(a, order, boundary_counts, n_parts, n_local, dtype, dev)
+
+
+def build_shift_partition_plans(
+    adjacencies,
+    coords,
+    n_parts: int,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> tuple[PartitionPlan, ...]:
+    """Per-shift plans over ONE shared vertex layout.
+
+    A joint recurrence interleaves matvecs in several shifts over the same
+    signal, so every shift sees the vertices in the same order: one
+    scatter, one gather, R exchange plans. The layout comes from the
+    union edge pattern ``sum_r |A_r|``; each shift's tables are built
+    under it, and each plan carries its own ``halo_words`` (0 for a shift
+    whose edges never cross the cut). All plans share ``order``,
+    ``n_local`` and ``boundary_counts``.
+    """
+    dev = resolve_device(device)
+    mats = [_host(a).astype(np.float64) for a in adjacencies]
+    if not mats:
+        raise ValueError("need at least one adjacency")
+    union = np.abs(mats[0])
+    for m in mats[1:]:
+        union = union + np.abs(m)
+    c = None if coords is None else _host(coords)
+    order, boundary_counts, n_local = _partition_layout(union, c, n_parts)
+    return tuple(
+        _plan_tables(a, order, boundary_counts, n_parts, n_local, dtype, dev) for a in mats
+    )
 
 
 def plan_row_slabs(plan: PartitionPlan) -> torch.Tensor:
@@ -541,6 +575,68 @@ class DistributedGraphContext:
             return order * self.plan.halo_words
         n_dev = self.plan.n_parts
         return order * self.plan.n_local * n_dev * (n_dev - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiShiftGraphContext:
+    """Distributed context of a multi-shift joint filter: R per-shift
+    :class:`PartitionPlan` s over one shared layout
+    (:func:`build_shift_partition_plans`), bound to a mesh.
+
+    One scatter and one gather move the signal; inside the joint
+    recurrence every matvec of shift r runs :func:`halo_matvec` on
+    ``plans[r]`` (the serial schedule; the overlapped one stays
+    single-shift, as in the reference), so it moves exactly
+    ``plans[r].halo_words`` words.
+    """
+
+    plans: tuple[PartitionPlan, ...]
+    mesh: object
+    lmaxes: tuple[float, ...]
+    _contexts: tuple = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if len(self.plans) != len(self.lmaxes):
+            raise ValueError(f"{len(self.plans)} plans for {len(self.lmaxes)} lmaxes")
+        ctxs = tuple(DistributedGraphContext(plan=p, mesh=self.mesh) for p in self.plans)
+        object.__setattr__(self, "_contexts", ctxs)
+
+    @property
+    def plan(self) -> PartitionPlan:
+        """The first shift's plan: the layout fields (order, n_local, n)
+        are shared by construction."""
+        return self.plans[0]
+
+    def scatter_signal(self, f: torch.Tensor, *, vertex_dim: int = 0) -> torch.Tensor:
+        """As :meth:`DistributedGraphContext.scatter_signal` (shared layout)."""
+        return self._contexts[0].scatter_signal(f, vertex_dim=vertex_dim)
+
+    def gather_signal(self, y: torch.Tensor) -> torch.Tensor:
+        """As :meth:`DistributedGraphContext.gather_signal` (shared layout)."""
+        return self._contexts[0].gather_signal(y)
+
+    def _matvecs(self):
+        return [ctx._halo_matvec() for ctx in self._contexts]
+
+    def cheb_apply_joint(self, f_sharded, coeffs):
+        """Distributed joint ``Phi~ f``: f_sharded (R * n_local, F) from
+        :meth:`scatter_signal`, coeffs (eta, M_1+1, ..., M_R+1). Returns
+        (eta, R * n_local, F)."""
+        f_loc = self._contexts[0]._local(f_sharded)
+        out = chebyshev.cheb_apply_joint(self._matvecs(), f_loc, coeffs, self.lmaxes)
+        return out.flatten(1, 2)
+
+    def cheb_adjoint_joint(self, a_sharded, coeffs):
+        """Distributed joint ``Phi~* a``: a_sharded (eta, R * n_local, F).
+        Returns (R * n_local, F)."""
+        a_loc = self._contexts[0]._local(a_sharded, 1)
+        out = chebyshev.cheb_adjoint_apply_joint(self._matvecs(), a_loc, coeffs, self.lmaxes)
+        return out.flatten(0, 1)
+
+    def messages_per_apply(self, matvec_counts) -> int:
+        """Per-shift words: shift r's ``count_r`` matvecs each move its own
+        plan's ``halo_words``."""
+        return int(sum(int(c) * p.halo_words for c, p in zip(matvec_counts, self.plans)))
 
 
 # ---- the grid schedules: matrix-free stencil on row slabs -----------------

@@ -1,16 +1,24 @@
 """``GraphFilter`` — the entry point for Chebyshev-approximated unions of
 graph Fourier multipliers (paper eqs. 8-11), backend-dispatched.
 
-Mirrors ``repro/filters/api.py`` for single-shift filters::
+Mirrors ``repro/filters/api.py``::
 
     filt = GraphFilter.from_multipliers(bank, order=20, graph=g)
     out  = filt.apply(f, backend="bsr")      # (eta,) + f.shape
     back = filt.adjoint(out)                 # f.shape
     gram = filt.gram(f)                      # Phi~* Phi~ f, one 2M filter
 
-Signals are tensors; a non-tensor signal is placed on the bound graph's
-device. Not ported yet: ``from_shifts`` (multi-shift slice),
-``panel_program`` (serve slice) and ``apply_sparse`` (streaming slice).
+A filter may also be built over an ordered tuple of commuting shift
+operators (arXiv:2003.11152 joint polynomials, e.g. a time-vertex product
+of a sensor Laplacian and a temporal Laplacian)::
+
+    filt = GraphFilter.from_shifts([g_sensor, g_time], joint_coeffs)
+    out  = filt.apply(f, backend="halo")     # per-shift halo plans
+
+Multi-shift filters run on the backends that declare ``multi_shift``
+(``dense``, ``bsr``, ``halo``). Signals are tensors; a non-tensor signal
+is placed on the bound graph's device. Not ported yet: ``panel_program``
+(serve slice) and ``apply_sparse`` (streaming slice).
 """
 
 from __future__ import annotations
@@ -79,11 +87,19 @@ class GraphFilter:
     lmax : float
         Spectrum upper bound the polynomials are shifted to.
     gram_coeffs : numpy.ndarray
-        (2M+1,) coefficients of ``Phi~* Phi~`` (Sec. IV-C).
+        (2M+1,) coefficients of ``Phi~* Phi~`` (Sec. IV-C); the
+        (2M_1+1, ..., 2M_R+1) joint tensor for multi-shift filters.
     graph : SensorGraph, optional
-        The bound graph; every backend except ``"matvec"`` needs one.
+        The bound (first-shift) graph; every backend except ``"matvec"``
+        needs one.
     multipliers : tuple of callables, optional
         The multiplier bank the coefficients were expanded from.
+    shifts : tuple of SensorGraph, optional
+        The ordered shift tuple of a multi-shift filter (``shifts[0] is
+        graph``); None on single-shift filters.
+    lmaxes : tuple of float, optional
+        Per-shift spectrum bounds (``lmaxes[0] == lmax``); None on
+        single-shift filters.
     """
 
     coeffs: np.ndarray
@@ -91,6 +107,8 @@ class GraphFilter:
     gram_coeffs: np.ndarray
     graph: SensorGraph | None = None
     multipliers: tuple[Multiplier, ...] | None = None
+    shifts: tuple[SensorGraph, ...] | None = None
+    lmaxes: tuple[float, ...] | None = None
     _states: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     # -- constructors ----------------------------------------------------
@@ -141,16 +159,75 @@ class GraphFilter:
         )
 
     @classmethod
-    def from_shifts(cls, shifts, coeffs, *, lmaxes=None) -> "GraphFilter":
-        """Joint filters over several shifts come with the multi-shift
-        slice of the port."""
-        raise NotImplementedError(
-            "GraphFilter.from_shifts is not ported yet: it comes with the "
-            "multi-shift slice (ROADMAP A7)"
+    def from_shifts(
+        cls,
+        shifts: Sequence[SensorGraph],
+        coeffs: np.ndarray,
+        *,
+        lmaxes: Sequence[float] | None = None,
+    ) -> "GraphFilter":
+        """Build a joint polynomial filter over an ordered shift tuple.
+
+        The shifts must commute (e.g. ``L_G (x) I`` and ``I (x) L_T`` of a
+        time-vertex product) and act on one vertex set: every graph has
+        the product graph's vertex count, its adjacency holding that
+        shift's edges only, so each shift has its own halo plan on the
+        distributed backends.
+
+        Parameters
+        ----------
+        shifts : sequence of SensorGraph
+            R graphs over the same vertex set.
+        coeffs : numpy.ndarray
+            Joint (eta, M_1+1, ..., M_R+1) coefficients (an (M_1+1, ...,
+            M_R+1) tensor is promoted to eta = 1); see
+            ``chebyshev.separable_joint_coefficients``.
+        lmaxes : sequence of float, optional
+            Per-shift spectrum bounds; default each graph's
+            Anderson--Morley ``lmax_bound()``.
+        """
+        shifts = tuple(shifts)
+        if not shifts:
+            raise ValueError("from_shifts needs at least one shift")
+        n = shifts[0].n_vertices
+        for r, g in enumerate(shifts):
+            if g.n_vertices != n:
+                raise ValueError(
+                    f"shift {r} has {g.n_vertices} vertices, shift 0 has {n};"
+                    " all shifts act on the same product vertex set"
+                )
+        c = np.asarray(coeffs, dtype=np.float64)
+        if c.ndim == len(shifts):
+            c = c[np.newaxis]
+        if c.ndim != len(shifts) + 1:
+            raise ValueError(
+                f"joint coeffs for {len(shifts)} shifts must have ndim "
+                f"{len(shifts) + 1} (eta leading), got shape {c.shape}"
+            )
+        if lmaxes is None:
+            lmaxes = tuple(float(g.lmax_bound()) for g in shifts)
+        else:
+            lmaxes = tuple(float(v) for v in lmaxes)
+            if len(lmaxes) != len(shifts):
+                raise ValueError(f"{len(lmaxes)} lmaxes for {len(shifts)} shifts")
+        return cls(
+            coeffs=c,
+            lmax=lmaxes[0],
+            gram_coeffs=chebyshev.joint_gram_coefficients(c),
+            graph=shifts[0],
+            shifts=shifts,
+            lmaxes=lmaxes,
         )
 
     def bind(self, graph: SensorGraph) -> "GraphFilter":
-        """Return a copy bound to ``graph`` (backend states reset)."""
+        """Return a copy bound to ``graph`` (backend states reset).
+        Single-shift only: rebuild a multi-shift filter with
+        :meth:`from_shifts`."""
+        if self.n_shifts > 1:
+            raise ValueError(
+                "bind() is single-shift; rebuild multi-shift filters with "
+                "GraphFilter.from_shifts"
+            )
         return dataclasses.replace(self, graph=graph, _states={})
 
     # -- introspection ---------------------------------------------------
@@ -162,23 +239,46 @@ class GraphFilter:
 
     @property
     def n_shifts(self) -> int:
-        """Number of shift operators (always 1 in this port slice)."""
+        """Number of shift operators (1 for single-shift filters)."""
         return self.coeffs.ndim - 1
 
     @property
     def order(self) -> int:
-        """Chebyshev truncation order M."""
+        """Chebyshev truncation order M (single-shift filters only)."""
+        if self.n_shifts > 1:
+            raise ValueError(
+                f"multi-shift filter has per-shift orders {self.orders}; "
+                "use .orders"
+            )
         return self.coeffs.shape[1] - 1
 
     @property
     def orders(self) -> tuple[int, ...]:
-        return (self.order,)
+        """Per-shift truncation orders (M_1, ..., M_R)."""
+        return tuple(m - 1 for m in self.coeffs.shape[1:])
+
+    @property
+    def shift_graphs(self) -> tuple[SensorGraph | None, ...]:
+        """The ordered shift tuple ((graph,) for single-shift filters)."""
+        return self.shifts if self.shifts is not None else (self.graph,)
+
+    @property
+    def shift_lmaxes(self) -> tuple[float, ...]:
+        """Per-shift spectrum bounds ((lmax,) for single-shift filters)."""
+        return self.lmaxes if self.lmaxes is not None else (self.lmax,)
 
     def operator_norm_bound(self) -> float:
-        """Upper bound on ``||Phi~||^2 = max_x sum_j p_j(x)^2`` over
-        ``[0, lmax]``."""
-        x = np.linspace(0.0, self.lmax, 8192)
-        vals = np.atleast_2d(chebyshev.cheb_eval(self.coeffs, x, self.lmax))
+        """Upper bound on ``||Phi~||^2 = max_x sum_j p_j(x)^2`` over the
+        shifted domain; multi-shift filters maximize over the tensor grid
+        of ``max(64, round(8192^(1/R)))`` points per axis."""
+        if self.n_shifts == 1:
+            x = np.linspace(0.0, self.lmax, 8192)
+            vals = np.atleast_2d(chebyshev.cheb_eval(self.coeffs, x, self.lmax))
+        else:
+            pts = max(64, int(round(8192 ** (1.0 / self.n_shifts))))
+            xs = [np.linspace(0.0, lm, pts) for lm in self.shift_lmaxes]
+            vals = chebyshev.cheb_eval_joint(self.coeffs, xs, self.shift_lmaxes)
+            vals = vals.reshape(self.eta, -1)
         return float(np.max(np.sum(vals**2, axis=0)))
 
     # -- backend dispatch ------------------------------------------------
@@ -221,7 +321,8 @@ class GraphFilter:
             (N,) or (N, F) signal(s).
         backend : str
             ``dense``, ``bsr``, ``halo``, ``allgather``, ``grid`` or
-            ``matvec``.
+            ``matvec``. Multi-shift filters need a backend declaring the
+            ``multi_shift`` capability (``dense``, ``bsr``, ``halo``).
         **opts
             Backend options (``block_size=``, ``fuse=``, ``f_tile=``,
             ``krylov_dtype=`` for ``bsr``; ``mesh=``, ``n_parts=`` for the
@@ -262,11 +363,17 @@ class GraphFilter:
         return be.adjoint(self, self._backend_state(be, opts), self._signal(a), **opts)
 
     def apply_series(self, f, series: np.ndarray, *, backend: str = "dense", **opts):
-        """Apply one polynomial ``p(L) f`` given by its (M'+1,) series
-        (half-first convention), reusing the prepared backend state."""
+        """Apply one polynomial ``p(S_1..S_R) f`` in this filter's shifts,
+        given by its (M'+1,) series, or an (M'_1+1, ..., M'_R+1) joint
+        tensor for a multi-shift filter (half-first convention), reusing
+        the prepared backend state. ``gram`` and the Chebyshev inverse
+        preconditioner run through it."""
         c = np.asarray(series, dtype=np.float64)
-        if c.ndim != 1:
-            raise ValueError(f"series must have ndim 1, got shape {c.shape}")
+        if c.ndim != self.n_shifts:
+            raise ValueError(
+                f"series for a {self.n_shifts}-shift filter must have ndim "
+                f"{self.n_shifts}, got shape {c.shape}"
+            )
         be = self._backend(backend)
         state = self._backend_state(be, opts)
         return be.apply(self, state, self._signal(f), coeffs=c[np.newaxis], **opts)[0]
@@ -285,11 +392,25 @@ class GraphFilter:
     ) -> int:
         """Scalar words exchanged between ranks per ``Phi~ f`` of one
         (N,) signal: 0 on the single-device backends, the backend's
-        communication model on ``halo``, ``allgather`` and ``grid``."""
+        communication model on ``halo``, ``allgather`` and ``grid``. On
+        ``halo`` a multi-shift filter costs ``sum_r count_r *
+        halo_words_r`` with ``count_r = M_r * prod_{s<r}(M_s + 1)``.
+
+        ``order`` is a single-shift filter's M (default its order; the
+        solvers pass ``2M`` for the gram); ``orders`` the per-shift orders
+        (default ``self.orders``). Pass one or neither."""
         if order is not None and orders is not None:
             raise ValueError("pass order= or orders=, not both")
         if orders is None:
-            orders = (int(order),) if order is not None else self.orders
+            if order is not None:
+                if self.n_shifts > 1:
+                    raise ValueError(
+                        "multi-shift filter: pass per-shift orders= "
+                        "instead of a scalar order="
+                    )
+                orders = (int(order),)
+            else:
+                orders = self.orders
         elif len(orders) != self.n_shifts:
             raise ValueError(f"{len(orders)} orders for {self.n_shifts} shifts")
         be = self._backend(backend)

@@ -1,6 +1,6 @@
 """The port's ``GraphFilter`` backends.
 
-Mirrors ``repro/filters/backends.py`` for single-shift filters:
+Mirrors ``repro/filters/backends.py``:
 
 * ``dense``      — dense Laplacian ``torch.matmul`` and a Python-loop
                    recurrence; the parity oracle for the others.
@@ -18,6 +18,12 @@ Mirrors ``repro/filters/backends.py`` for single-shift filters:
                    graphs only).
 * ``matvec``     — no graph: the caller supplies ``matvec=`` computing
                    ``L @ v``.
+
+``dense``, ``bsr`` and ``halo`` also run multi-shift joint filters
+(``GraphFilter.from_shifts``): one operand per shift, the joint
+recurrence of ``chebyshev.cheb_apply_joint``. On ``bsr`` its innermost
+level is a single-shift union apply of the last shift, dispatched to the
+fused kernel or the stepwise chain as a single-shift apply is.
 
 Where the reference switches Pallas to interpret mode off the TPU, the
 port switches on the signal's device: CUDA tensors reach the CUDA
@@ -40,12 +46,18 @@ from repro_torch.core import chebyshev, collectives
 from repro_torch.core import graph as graph_lib
 from repro_torch.core.distributed import (
     DistributedGraphContext,
+    MultiShiftGraphContext,
     build_partition_plan,
+    build_shift_partition_plans,
     grid_cheb_apply_ca,
     grid_slab_matvec,
 )
-from repro_torch.filters.registry import BackendCapabilities, register_backend
-from repro_torch.kernels import autotune, ops as kops, ref as kref
+from repro_torch.filters.registry import (
+    BackendCapabilities,
+    register_backend,
+    require_capability,
+)
+from repro_torch.kernels import autotune, cheb_bsr, ops as kops, ref as kref
 
 __all__ = [
     "DenseBackend",
@@ -108,18 +120,34 @@ class DenseBackend:
 
     name = "dense"
     prepare_opts: frozenset[str] = frozenset()
-    capabilities = BackendCapabilities(traceable=True)
+    capabilities = BackendCapabilities(traceable=True, multi_shift=True)
 
     def prepare(self, filt, **_):
-        return _require_graph(filt, self.name).laplacian()
+        _require_graph(filt, self.name)
+        # One dense Laplacian per shift; apply branches on the tuple.
+        laps = tuple(s.laplacian() for s in filt.shift_graphs)
+        return laps if filt.n_shifts > 1 else laps[0]
+
+    @staticmethod
+    def _matvecs(laps: tuple):
+        return [lambda v, m=m: torch.tensordot(m, v, dims=1) for m in laps]
 
     def apply(self, filt, lap, f, *, coeffs=None, **_):
+        c = _coeffs_or(filt, coeffs)
+        if isinstance(lap, tuple):
+            _check_device(f, lap[0].device)
+            return chebyshev.cheb_apply_joint(self._matvecs(lap), f, c, filt.shift_lmaxes)
         _check_device(f, lap.device)
-        return chebyshev.cheb_apply(lambda v: lap @ v, f, _coeffs_or(filt, coeffs), filt.lmax)
+        return chebyshev.cheb_apply(lambda v: lap @ v, f, c, filt.lmax)
 
     def adjoint(self, filt, lap, a, **_):
         # tensordot: the adjoint recurrence carries the eta blocks in
         # trailing dims, so contract the vertex axis explicitly.
+        if isinstance(lap, tuple):
+            _check_device(a, lap[0].device)
+            return chebyshev.cheb_adjoint_apply_joint(
+                self._matvecs(lap), a, filt.coeffs, filt.shift_lmaxes
+            )
         _check_device(a, lap.device)
         return chebyshev.cheb_adjoint_apply(
             lambda v: torch.tensordot(lap, v, dims=1), a, filt.coeffs, filt.lmax
@@ -138,6 +166,23 @@ class _BsrState:
     n_pad: int
 
 
+@dataclasses.dataclass(frozen=True)
+class _BsrMultiState:
+    """Multi-shift Block-ELL state: one tiling per shift over one layout.
+
+    Every shift's Laplacian is permuted by the same spatial order (taken
+    from the first shift's coordinates) and padded to the same ``n_pad``,
+    so the joint recurrence interleaves per-shift matvecs on one signal
+    layout.
+    """
+
+    bells: tuple
+    perm: torch.Tensor
+    inv: torch.Tensor
+    n: int
+    n_pad: int
+
+
 @register_backend
 class BsrBackend:
     """Block-ELL backend on the CUDA kernels.
@@ -151,11 +196,20 @@ class BsrBackend:
     Options: ``block_size`` (prepare; default 8), ``fuse`` and ``f_tile``
     overrides, and ``krylov_dtype`` (apply; default float32, or
     ``"bfloat16"`` to round only the stored Krylov vectors).
+
+    A multi-shift filter gets one tiling per shift over one layout. Its
+    joint recurrence runs the outer shifts with the plain Block-ELL
+    matvec, as the reference's does, and the innermost level (the last
+    shift, one union apply per combination of outer Krylov vectors:
+    ``prod_{s<R}(M_s + 1)`` of them) through the same fused/stepwise
+    dispatch as a single-shift apply. The joint coefficients go to the
+    device once per coefficient tensor, and each innermost call gets a
+    device slice. The adjoint stays the plain Block-ELL recurrence.
     """
 
     name = "bsr"
     prepare_opts: frozenset[str] = frozenset({"block_size"})
-    capabilities = BackendCapabilities(traceable=True)
+    capabilities = BackendCapabilities(traceable=True, multi_shift=True)
 
     def prepare(self, filt, *, block_size: int = 8, **_):
         g = _require_graph(filt, self.name)
@@ -170,11 +224,14 @@ class BsrBackend:
         inv[perm] = np.arange(n)
         dev = g.device
         perm_t = torch.as_tensor(perm, device=dev)
-        lap = g.laplacian()[perm_t][:, perm_t]
-        bell = kref.bsr_from_dense(lap, block_size)
-        return _BsrState(
-            bell=bell, perm=perm_t, inv=torch.as_tensor(inv, device=dev), n=n, n_pad=bell.n
+        inv_t = torch.as_tensor(inv, device=dev)
+        bells = tuple(
+            kref.bsr_from_dense(s.laplacian()[perm_t][:, perm_t], block_size)
+            for s in filt.shift_graphs
         )
+        if filt.n_shifts > 1:
+            return _BsrMultiState(bells=bells, perm=perm_t, inv=inv_t, n=n, n_pad=bells[0].n)
+        return _BsrState(bell=bells[0], perm=perm_t, inv=inv_t, n=n, n_pad=bells[0].n)
 
     def _forward(self, state: _BsrState, f: torch.Tensor):
         """Permute + pad an (N, ...) signal into kernel layout."""
@@ -199,38 +256,69 @@ class BsrBackend:
         c = _coeffs_or(filt, coeffs)
         kd = _torch_dtype(krylov_dtype)
         fp, squeeze = self._forward(state, f)
-        bell = state.bell
-        if fuse is None:
-            fuse = autotune.select_tiling(
-                state.n_pad, fp.shape[1], c.shape[0],
-                bell.n_block_rows, bell.k_max, bell.block_size, fp.dtype,
-                krylov_dtype=kd, sm_count=autotune.device_sm_count(fp.device),
-            ).fuse
-        if fuse:
-            out = kops.cheb_apply_bsr_fused(
-                bell.blocks, bell.cols, fp, c, filt.lmax, f_tile=f_tile, krylov_dtype=kd
+        if isinstance(state, _BsrMultiState):
+            lmaxes = filt.shift_lmaxes
+
+            def inner(v, c_slice):
+                return self._union_apply(state.bells[-1], v.contiguous(), c_slice, lmaxes[-1],
+                                         fuse=fuse, f_tile=f_tile, krylov_dtype=kd)
+
+            out = chebyshev.cheb_apply_joint(
+                [self._bell_matvec(b, state.n_pad) for b in state.bells], fp,
+                cheb_bsr.device_coeffs(c, fp.device), lmaxes, inner=inner,
             )
         else:
-            out = kops.cheb_apply_bsr(
-                bell.blocks, bell.cols, fp, c, filt.lmax,
-                f_tile=f_tile, krylov_dtype=kd,
-            )
+            out = self._union_apply(state.bell, fp, c, filt.lmax, fuse=fuse, f_tile=f_tile,
+                                    krylov_dtype=kd)
         out = out[:, state.inv]
         return out[:, :, 0] if squeeze else out
 
-    def adjoint(self, filt, state: _BsrState, a, **_):
+    @staticmethod
+    def _union_apply(bell, fp, c, lmax, *, fuse, f_tile, krylov_dtype):
+        """One single-shift union apply on Block-ELL operands: the fused
+        kernel when ``select_tiling`` (or ``fuse=``) says so, else the
+        stepwise chain. ``c`` is (eta, M+1), host array or device tensor."""
+        if fuse is None:
+            fuse = autotune.select_tiling(
+                fp.shape[0], fp.shape[1], c.shape[0],
+                bell.n_block_rows, bell.k_max, bell.block_size, fp.dtype,
+                krylov_dtype=krylov_dtype, sm_count=autotune.device_sm_count(fp.device),
+            ).fuse
+        if fuse:
+            return kops.cheb_apply_bsr_fused(
+                bell.blocks, bell.cols, fp, c, lmax, f_tile=f_tile, krylov_dtype=krylov_dtype
+            )
+        return kops.cheb_apply_bsr(
+            bell.blocks, bell.cols, fp, c, lmax, f_tile=f_tile, krylov_dtype=krylov_dtype
+        )
+
+    @staticmethod
+    def _bell_matvec(bell, n_pad: int):
+        """Plain Block-ELL matvec closure handling any trailing dims."""
+
+        def mv(v):
+            flat = v.reshape(n_pad, -1)
+            return kref.bsr_matvec_ref(bell, flat).reshape(v.shape)
+
+        return mv
+
+    def adjoint(self, filt, state, a, **_):
         # Same recurrence on eta-stacked blocks (Sec. IV-B) with the plain
         # Block-ELL matvec: the reference has no kernel for the adjoint.
         _check_device(a, state.perm.device)
         squeeze = a.ndim == 2  # (eta, N) -> signals are 1-D
         a3 = a[:, :, None] if squeeze else a
         ap = F.pad(a3[:, state.perm], (0, 0, 0, state.n_pad - state.n))
-
-        def mv(v):
-            flat = v.reshape(state.n_pad, -1)
-            return kref.bsr_matvec_ref(state.bell, flat).reshape(v.shape)
-
-        out = chebyshev.cheb_adjoint_apply(mv, ap, filt.coeffs, filt.lmax)
+        c = cheb_bsr.device_coeffs(filt.coeffs, ap.device)
+        if isinstance(state, _BsrMultiState):
+            out = chebyshev.cheb_adjoint_apply_joint(
+                [self._bell_matvec(b, state.n_pad) for b in state.bells], ap, c,
+                filt.shift_lmaxes,
+            )
+        else:
+            out = chebyshev.cheb_adjoint_apply(
+                self._bell_matvec(state.bell, state.n_pad), ap, c, filt.lmax
+            )
         out = out[state.inv]
         return out[:, 0] if squeeze else out
 
@@ -257,15 +345,36 @@ class _ShardedBackendBase:
         g = _require_graph(filt, self.name)
         if mesh is None:
             mesh = collectives.default_mesh(n_parts, g.device)
+        if filt.n_shifts > 1:
+            # One layout from the union edge pattern, one plan per shift.
+            plans = build_shift_partition_plans(
+                [s.adjacency for s in filt.shifts], g.coords, mesh.n_parts,
+                device=mesh.device,
+            )
+            return MultiShiftGraphContext(plans=plans, mesh=mesh, lmaxes=filt.shift_lmaxes)
         plan = build_partition_plan(g.adjacency, g.coords, mesh.n_parts, device=mesh.device)
         return DistributedGraphContext(plan=plan, mesh=mesh)
+
+    def _multi(self, ctx) -> bool:
+        """Whether ``ctx`` is a multi-shift context, which only a backend
+        declaring ``multi_shift`` may be handed (halo and allgather share
+        the prepared state)."""
+        if isinstance(ctx, MultiShiftGraphContext):
+            require_capability(self, "multi_shift")
+            return True
+        return False
 
     def apply(self, filt, ctx, f, *, coeffs=None, overlap: bool | None = None, **_):
         _check_device(f, ctx.mesh.device)
         c = _coeffs_or(filt, coeffs)
         squeeze = f.ndim == 1
-        out = ctx.cheb_apply(ctx.scatter_signal(f), c, filt.lmax, backend=self.name,
-                             overlap=overlap)
+        if self._multi(ctx):
+            # Per-shift halo exchange inside the joint recurrence (serial
+            # exchange -> matvec; the overlapped schedule is single-shift).
+            out = ctx.cheb_apply_joint(ctx.scatter_signal(f), c)
+        else:
+            out = ctx.cheb_apply(ctx.scatter_signal(f), c, filt.lmax, backend=self.name,
+                                 overlap=overlap)
         out = ctx.gather_signal(out)
         return out[:, :, 0] if squeeze else out
 
@@ -273,11 +382,17 @@ class _ShardedBackendBase:
         _check_device(a, ctx.mesh.device)
         squeeze = a.ndim == 2
         a3 = a[:, :, None] if squeeze else a
-        out = ctx.cheb_adjoint(ctx.scatter_signal(a3, vertex_dim=1), filt.coeffs, filt.lmax)
+        sharded = ctx.scatter_signal(a3, vertex_dim=1)
+        if self._multi(ctx):
+            out = ctx.cheb_adjoint_joint(sharded, filt.coeffs)
+        else:
+            out = ctx.cheb_adjoint(sharded, filt.coeffs, filt.lmax)
         out = ctx.gather_signal(out)
         return out[:, 0] if squeeze else out
 
     def messages_per_apply(self, filt, ctx, matvec_counts) -> int:
+        if self._multi(ctx):
+            return ctx.messages_per_apply(matvec_counts)
         return ctx.messages_per_apply(matvec_counts[0], backend=self.name)
 
 
@@ -292,12 +407,16 @@ class HaloBackend(_ShardedBackendBase):
     The ``overlap=`` apply option picks the overlapped schedule (True)
     or the serial exchange->matvec one (False); by default the mesh
     picks (``mesh.overlaps``: overlapped on a process group, serial on a
-    ``StackedMesh``). Both move exactly the same words. Single-shift only in the port
-    (the reference's multi-shift halo state is not ported yet).
+    ``StackedMesh``). Both move exactly the same words.
+
+    Multi-shift filters run here too: ``prepare`` builds one plan per
+    shift over a shared union layout and the joint recurrence exchanges
+    each shift's own halo (serial schedule), so ``messages_per_apply`` is
+    the per-shift sum ``sum_r count_r * halo_words_r``.
     """
 
     name = "halo"
-    capabilities = BackendCapabilities()
+    capabilities = BackendCapabilities(multi_shift=True)
 
 
 @register_backend
@@ -305,7 +424,9 @@ class AllgatherBackend(_ShardedBackendBase):
     """Naive distributed baseline: all-gather the full signal per order.
 
     Words per apply = ``M * n_local * P * (P-1)``. Its adjoint runs the
-    halo exchange, as the reference's does.
+    halo exchange, as the reference's does. Single-shift only: it shares
+    the ``partition_plan`` state with ``halo``, and ``GraphFilter``
+    refuses a multi-shift filter at dispatch, before any ``prepare``.
     """
 
     name = "allgather"

@@ -42,9 +42,11 @@ class BackendCapabilities:
         True iff the backend implements ``apply_sparse``. No backend of
         the port does yet (the streaming slice adds it).
     multi_shift : bool
-        True iff the backend evaluates joint polynomials of several shift
-        operators. No backend of the port does yet (the multi-shift slice
-        adds it).
+        True iff the backend evaluates joint polynomials of several
+        commuting shift operators (``GraphFilter.from_shifts``): ``dense``,
+        ``bsr`` and ``halo``, as in the reference. ``GraphFilter`` checks
+        it at dispatch, before any ``prepare``, so a backend without it
+        never sees a multi-shift filter.
     """
 
     traceable: bool = False
@@ -142,7 +144,11 @@ def backend_supports_multi_shift(name: str) -> bool:
 
 def require_capability(backend: FilterBackend | str, capability: str) -> None:
     """Raise unless ``backend`` declares ``capability``; the error names
-    both and the backends that do support it."""
+    both and the backends that do support it::
+
+        backend 'allgather' does not support capability 'multi_shift';
+        supported backends: ['bsr', 'dense', 'halo']
+    """
     be = get_backend(backend) if isinstance(backend, str) else backend
     caps = be.capabilities
     if not hasattr(caps, capability):

@@ -1,8 +1,9 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
 The reference draws its graphs from ``jax.random``; these helpers let the
-same drawn graph, Block-ELL operands, coefficients and solver problems
-enter the port, so tests can feed identical inputs to both packages.
+same drawn graph, Block-ELL operands, coefficients, joint (multi-shift)
+filters and solver problems enter the port, so tests can feed identical
+inputs to both packages.
 Nothing here imports the reference: callers pass numpy arrays.
 """
 
@@ -21,6 +22,7 @@ __all__ = [
     "sensor_graph_from_numpy",
     "block_ell_from_numpy",
     "filter_from_numpy",
+    "joint_filter_from_numpy",
     "problem_from_numpy",
 ]
 
@@ -60,6 +62,19 @@ def filter_from_numpy(coeffs, lmax: float, graph: SensorGraph | None = None) -> 
     """A ``GraphFilter`` from (eta, M+1) coefficients and ``lmax``, bound
     to ``graph`` (whose device the filter's backends use)."""
     return GraphFilter.from_coefficients(np.asarray(coeffs, np.float64), float(lmax), graph=graph)
+
+
+def joint_filter_from_numpy(
+    adjacencies, coords, coeffs, lmaxes, device: str | torch.device | None = None
+) -> GraphFilter:
+    """A multi-shift ``GraphFilter`` from the reference's arrays: one
+    (N, N) adjacency per shift (all sharing the (N, d) ``coords``), the
+    joint (eta, M_1+1, ..., M_R+1) coefficients and the per-shift lmaxes.
+    The shift graphs are float32 ``SensorGraph`` s on ``device``."""
+    shifts = [sensor_graph_from_numpy(a, coords, device) for a in adjacencies]
+    return GraphFilter.from_shifts(
+        shifts, np.asarray(coeffs, np.float64), lmaxes=[float(v) for v in lmaxes]
+    )
 
 
 def problem_from_numpy(

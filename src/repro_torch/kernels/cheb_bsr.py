@@ -28,7 +28,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.autotune import UNION_BLOCKS, device_sm_count, select_tiling
 
-__all__ = ["cheb_step_cuda", "cheb_union_cuda", "reset_launch_counts"]
+__all__ = ["cheb_step_cuda", "cheb_union_cuda", "device_coeffs", "reset_launch_counts"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -137,11 +137,18 @@ cheb_step_cuda.launches = 0
 
 
 @functools.lru_cache(maxsize=16)
-def _device_coeffs(raw: bytes, eta: int, device: torch.device) -> torch.Tensor:
-    """The float32 coefficients on ``device``, uploaded once per filter
-    rather than once per apply."""
-    host = torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(eta, -1)
+def _device_coeffs(raw: bytes, shape: tuple, device: torch.device) -> torch.Tensor:
+    host = torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(shape)
     return host.to(device)
+
+
+def device_coeffs(coeffs, device: torch.device) -> torch.Tensor:
+    """A float64 host coefficient array (any shape) as a contiguous float32
+    tensor on ``device``, uploaded once per distinct array rather than once
+    per apply (a host-to-device copy synchronises the stream). A joint
+    tensor goes up whole; its slices are device views."""
+    c = np.asarray(coeffs, dtype=np.float64).astype(np.float32)
+    return _device_coeffs(c.tobytes(), c.shape, torch.device(device))
 
 
 def cheb_union_cuda(
@@ -160,7 +167,9 @@ def cheb_union_cuda(
       blocks: (n_rows, k_max, B, B) float32 tiles.
       cols: (n_rows, k_max) int32 block columns.
       f: (N, F) float32 signals.
-      coeffs: (eta, M+1) Chebyshev coefficients, M >= 1.
+      coeffs: (eta, M+1) Chebyshev coefficients, M >= 1: a host array
+        (uploaded once per distinct array, see ``device_coeffs``) or a
+        tensor on ``f``'s device (used as it is, cast to float32).
       lmax: spectrum bound.
       f_tile: signal columns per resident pass (default from
         ``autotune.select_tiling``: as many as the card's resident grid and
@@ -174,7 +183,14 @@ def cheb_union_cuda(
     (``autotune.UNION_BLOCKS``), else ``ValueError``.
     """
     n_rows, k_max, b, fdim = _check_operands(blocks, cols, {"f": f})
-    c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
+    if isinstance(coeffs, torch.Tensor):
+        c = torch.atleast_2d(coeffs)
+        if c.device != f.device:
+            raise ValueError(f"coeffs are on {c.device}, f on {f.device}")
+    else:
+        c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
+    if c.ndim != 2:
+        raise ValueError(f"coeffs must be (eta, M+1), got shape {tuple(c.shape)}")
     eta, order = c.shape[0], c.shape[1] - 1
     if order < 1:
         raise ValueError("need at least order 1 (two coefficients)")
@@ -205,7 +221,10 @@ def cheb_union_cuda(
         f_tile = tiling.f_tile
     if f_tile < 1:
         raise ValueError(f"f_tile must be >= 1, got {f_tile}")
-    coeffs_dev = _device_coeffs(c.astype(np.float32).tobytes(), eta, f.device)
+    if isinstance(c, torch.Tensor):
+        coeffs_dev = c.to(torch.float32).contiguous()
+    else:
+        coeffs_dev = device_coeffs(c, f.device)
     ta = torch.empty((n, fdim), dtype=krylov_dtype, device=f.device)
     tb = torch.empty_like(ta)
     out = torch.empty((eta, n, fdim), dtype=f.dtype, device=f.device)

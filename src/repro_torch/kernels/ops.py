@@ -41,9 +41,9 @@ def cheb_apply_bsr_fused(
         Block-ELL Laplacian (see ``kernels/ref.py``).
     f : torch.Tensor
         (N, F) float32 signal batch.
-    coeffs : array-like
+    coeffs : array-like or torch.Tensor
         (eta, M+1) Chebyshev coefficients (passed to the kernel as a
-        float32 device array).
+        float32 device array; a tensor on ``f``'s device is used as is).
     lmax : float
         Spectrum bound.
     f_tile : int, optional
@@ -77,7 +77,7 @@ def cheb_apply_bsr(
     Args:
       blocks/cols: Block-ELL Laplacian.
       f: (N, F) signal batch.
-      coeffs: (eta, M+1) Chebyshev coefficients.
+      coeffs: (eta, M+1) Chebyshev coefficients (host array or tensor).
       lmax: spectrum bound.
       f_tile: the step kernel's column slab (default ``min(F, 128)``).
       krylov_dtype: dtype the carried ``T_{k-1}``/``T_{k-2}`` round-trip
@@ -86,7 +86,10 @@ def cheb_apply_bsr(
 
     Returns: (eta, N, F).
     """
-    coeffs = torch.as_tensor(np.atleast_2d(np.asarray(coeffs)), device=f.device).to(f.dtype)
+    if isinstance(coeffs, torch.Tensor):
+        coeffs = torch.atleast_2d(coeffs).to(device=f.device, dtype=f.dtype)
+    else:
+        coeffs = torch.as_tensor(np.atleast_2d(np.asarray(coeffs)), device=f.device).to(f.dtype)
     alpha = float(lmax) / 2.0
 
     def step(t1, t2, first=False):

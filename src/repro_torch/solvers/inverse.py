@@ -1,6 +1,6 @@
 """Inverse filtering via Chebyshev approximation of ``1/h(lambda)``.
 
-Mirrors ``repro/solvers/inverse.py`` for single-shift filters. ``h`` is
+Mirrors ``repro/solvers/inverse.py``. ``h`` is
 known exactly as a Chebyshev series (the filter's ``gram_coeffs``), so its
 regularized reciprocal is fit directly (arXiv:2504.14341): a low-order
 series ``q(lambda) ~= 1 / (h(lambda) + reg)``, computed on the host by
@@ -15,7 +15,8 @@ alone. The fit is used two ways:
 
 ``q(L)`` is applied through :meth:`GraphFilter.apply_series`, reusing the
 prepared backend state (on ``bsr``: one union launch, or the stepwise
-chain). Multi-shift filters come with the multi-shift slice of the port.
+chain). Both extend to multi-shift filters, where ``q`` is a joint tensor
+series of per-shift order K fit on the tensor spectral grid.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ class ChebyshevPreconditioner:
     problem : GramProblem
         The Gram system whose operator this preconditions.
     coeffs : numpy.ndarray
-        The (K+1,) fitted series ``q`` (half-first-coefficient convention).
+        The (K+1,) fitted series ``q`` (half-first-coefficient convention),
+        a joint (K_1+1, ..., K_R+1) tensor for multi-shift filters.
     rate : float
         Contraction bound ``max |1 - q(h + reg)|`` over the spectral
         domain: the per-sweep error factor of :func:`cheb_inverse`.
@@ -68,10 +70,19 @@ class ChebyshevPreconditioner:
         return self.problem.filt.apply_series(r, self.coeffs, backend=self.backend, **self.opts)
 
 
-def _fit_min(q: np.ndarray, lmax: float, *, grid: int = 2048) -> float:
-    """Minimum of the fitted series ``q`` over ``[0, lmax]``."""
-    xs = np.linspace(0.0, float(lmax), grid)
-    return float(np.min(chebyshev.cheb_eval(np.asarray(q)[np.newaxis], xs, float(lmax))))
+def _fit_min(q: np.ndarray, lmaxes, *, grid: int = 2048) -> float:
+    """Minimum of the fitted series ``q`` over the spectral domain (the
+    tensor grid of ``max(64, round(grid^(1/R)))`` points per axis for a
+    joint series)."""
+    q = np.asarray(q)
+    if q.ndim == 1:
+        xs = np.linspace(0.0, float(lmaxes[0]), grid)
+        vals = chebyshev.cheb_eval(q[np.newaxis], xs, float(lmaxes[0]))
+    else:
+        pts = max(64, round(grid ** (1.0 / q.ndim)))
+        xs = [np.linspace(0.0, float(lm), pts) for lm in lmaxes]
+        vals = chebyshev.cheb_eval_joint(q[np.newaxis], xs, list(lmaxes))
+    return float(np.min(vals))
 
 
 def cheb_preconditioner(
@@ -96,7 +107,8 @@ def cheb_preconditioner(
     problem : GramProblem
         The system ``(Phi~* Phi~ + reg I) x = b`` to precondition.
     order : int
-        Starting fit order K; each application costs K matvecs.
+        Starting fit order K (per shift for a multi-shift filter); each
+        application costs K matvecs (per shift, the joint counts model).
     max_order : int
         Cap of the order doubling.
     quad_points : int, optional
@@ -105,20 +117,19 @@ def cheb_preconditioner(
         Backend the fitted series will be applied on.
     """
     filt = problem.filt
-    if filt.n_shifts != 1:
-        raise NotImplementedError(
-            "cheb_preconditioner of a multi-shift filter is not ported yet: it "
-            "comes with the multi-shift slice (ROADMAP A7)"
-        )
+    single = filt.n_shifts == 1
+    lmaxes = [filt.lmax] if single else list(filt.shift_lmaxes)
     k = int(order)
     while True:
+        korder = k if single else [k] * filt.n_shifts
         q = chebyshev.inverse_coefficients(
-            filt.gram_coeffs, filt.lmax, k, reg=problem.reg, quad_points=quad_points
+            filt.gram_coeffs, lmaxes[0] if single else lmaxes, korder,
+            reg=problem.reg, quad_points=quad_points,
         )
         rate = float(chebyshev.inverse_fixed_point_rate(
-            q, filt.gram_coeffs, filt.lmax, reg=problem.reg
+            q, filt.gram_coeffs, lmaxes[0] if single else lmaxes, reg=problem.reg
         ))
-        if rate < 1.0 and _fit_min(q, filt.lmax) > 0.0:
+        if rate < 1.0 and _fit_min(q, lmaxes) > 0.0:
             break
         if k >= max_order:
             raise ValueError(

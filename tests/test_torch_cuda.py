@@ -202,3 +202,93 @@ def test_grid_backend_on_cuda_matches_dense(cuda_device, depth):
     a = filt.apply(f, backend="dense")
     torch.testing.assert_close(filt.adjoint(a, backend="grid", mesh=mesh, depth=depth),
                                filt.adjoint(a, backend="dense"), rtol=1e-5, atol=1e-5)
+
+
+def _joint_setting(device, n_sensors=48, t=8):
+    """A time-vertex product (sensor graph x path of ``t``) and a
+    two-shift filter on it: a heat/Tikhonov bank at M = 8 on the sensor
+    shift, heat at M = 5 on the time shift."""
+    from repro_torch.core import chebyshev as tcheb
+
+    gen = torch.Generator().manual_seed(4)
+    gs = tgraph.connected_sensor_graph(gen, n=n_sensors, sigma=0.3, kappa=0.35, device=device)
+    path = torch.diag(torch.ones(t - 1), 1) + torch.diag(torch.ones(t - 1), -1)
+    coords = torch.cat([gs.coords.repeat_interleave(t, 0),
+                        (torch.arange(t) / t).repeat(n_sensors)[:, None].to(device)], dim=1)
+    shifts = [tgraph.SensorGraph(torch.kron(gs.adjacency, torch.eye(t, device=device)), coords),
+              tgraph.SensorGraph(torch.kron(torch.eye(n_sensors, device=device), path.to(device)),
+                                 coords)]
+    lms = [float(s.lmax_bound()) for s in shifts]
+    coeffs = tcheb.separable_joint_coefficients([
+        tcheb.cheb_coefficients([tmult.heat(0.6), tmult.tikhonov(1.0, 1)], 8, lms[0]),
+        tcheb.cheb_coefficients([tmult.heat(1.2)], 5, lms[1])])
+    filt = GraphFilter.from_shifts(shifts, coeffs, lmaxes=lms)
+    f = torch.randn(n_sensors * t, 3, generator=gen).to(device)
+    return filt, f
+
+
+def _on_cpu(filt):
+    return GraphFilter.from_shifts(
+        [tgraph.SensorGraph(s.adjacency.cpu(), s.coords.cpu()) for s in filt.shifts],
+        filt.coeffs, lmaxes=filt.shift_lmaxes)
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "stepwise"])
+def test_joint_bsr_innermost_level_on_the_kernels_matches_plain(cuda_device, fuse):
+    """The joint ``bsr`` apply and gram with the innermost level on the
+    kernels (``prod_{s<R}(M_s+1)`` union launches per apply, or ``M_R``
+    times that in steps) against the same joint apply on the CPU, whose
+    innermost level is the kernels' plain version."""
+    filt, f = _joint_setting(cuda_device)
+    (m1, m2) = filt.orders
+    cheb_bsr.reset_launch_counts()
+    got = filt.apply(f, backend="bsr", fuse=fuse)
+    torch.cuda.synchronize()
+    want_launches = (m1 + 1, 0) if fuse else (0, m2 * (m1 + 1))
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == want_launches
+    plain = _on_cpu(filt)
+    torch.testing.assert_close(got.cpu(), plain.apply(f.cpu(), backend="bsr", fuse=fuse),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, filt.apply(f, backend="dense"), rtol=1e-5, atol=1e-5)
+    cheb_bsr.reset_launch_counts()
+    gram = filt.gram(f, backend="bsr", fuse=fuse)
+    torch.cuda.synchronize()
+    g1, g2 = (2 * m for m in filt.orders)
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == (
+        (g1 + 1, 0) if fuse else (0, g2 * (g1 + 1)))
+    torch.testing.assert_close(gram.cpu(), plain.gram(f.cpu(), backend="bsr", fuse=fuse),
+                               rtol=1e-5, atol=1e-5)
+    composed = filt.adjoint(filt.apply(f, backend="bsr", fuse=fuse), backend="bsr")
+    torch.testing.assert_close(gram, composed, rtol=5e-4, atol=5e-4)
+
+
+def test_union_kernel_takes_device_coefficients(cuda_device):
+    g = tgraph.random_sensor_graph(torch.Generator().manual_seed(2), 256, 0.1, 0.11,
+                                   device=cuda_device)
+    bell = tref.bsr_from_dense(g.laplacian(), 8)
+    f = torch.randn(256, 4, device=cuda_device)
+    c = np.random.default_rng(0).standard_normal((2, 7)) / 4
+    lmax = float(g.lmax_bound())
+    host = cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, f, coeffs=c, lmax=lmax)
+    dev = cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, f, coeffs=torch.as_tensor(c).to(
+        cuda_device), lmax=lmax)
+    torch.testing.assert_close(dev, host, rtol=0, atol=0)
+    assert cheb_bsr.device_coeffs(c, f.device) is cheb_bsr.device_coeffs(c.copy(), f.device)
+    with pytest.raises(ValueError, match="coeffs are on"):
+        cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, f, coeffs=torch.as_tensor(c), lmax=lmax)
+
+
+def test_joint_halo_on_cuda_matches_dense_without_kernels(cuda_device):
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.filters import shift_matvec_counts
+
+    filt, f = _joint_setting(cuda_device)
+    mesh = StackedMesh(8, cuda_device)
+    cheb_bsr.reset_launch_counts()
+    got = filt.apply(f, backend="halo", mesh=mesh)
+    assert mesh.calls["all_to_all"] == sum(shift_matvec_counts(filt.orders))
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == (0, 0)
+    torch.testing.assert_close(got, filt.apply(f, backend="dense"), rtol=1e-5, atol=1e-5)
+    a = filt.apply(f, backend="dense")
+    torch.testing.assert_close(filt.adjoint(a, backend="halo", mesh=mesh),
+                               filt.adjoint(a, backend="dense"), rtol=1e-5, atol=1e-5)

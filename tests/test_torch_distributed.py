@@ -387,11 +387,18 @@ def test_capabilities_and_multi_shift_refusal(sensor_setting):
     _, tf, f = sensor_setting
     for name in ("halo", "allgather", "grid"):
         caps = backend_capabilities(name)
-        assert not caps.traceable and not caps.sparse_input and not caps.multi_shift
-    joint = GraphFilter(coeffs=np.ones((1, 3, 3)), lmax=2.0, gram_coeffs=np.ones((5, 5)),
-                        graph=tf.graph)
-    with pytest.raises(ValueError, match="multi_shift"):
-        joint.apply(torch.as_tensor(f), backend="halo", n_parts=4)
+        assert not caps.traceable and not caps.sparse_input
+        # halo runs joint filters (per-shift plans), as the reference's does
+        assert caps.multi_shift == (name == "halo")
+    # two copies of one shift commute: the joint filter is a polynomial in L
+    joint = GraphFilter.from_shifts([tf.graph, tf.graph], np.ones((1, 3, 3)) / 4,
+                                    lmaxes=[tf.lmax, tf.lmax])
+    ft = torch.as_tensor(f)
+    _close(joint.apply(ft, backend="halo", n_parts=4), joint.apply(ft, backend="dense").numpy(),
+           1e-5)
+    for name in ("allgather", "grid"):
+        with pytest.raises(ValueError, match=rf"'{name}'.*'multi_shift'"):
+            joint.apply(ft, backend=name, n_parts=4)
     assert get_backend("halo").state_key == get_backend("allgather").state_key
 
 
@@ -473,6 +480,7 @@ def rank_main(rank, world, store):
     from repro_torch.core import graph as tg, multipliers as tm
     from repro_torch.core.collectives import GroupMesh, StackedMesh
     from repro_torch.filters import GraphFilter
+    from repro_torch.filters import shift_matvec_counts as joint_counts
 
     gen = torch.Generator().manual_seed(3)
     g = tg.connected_sensor_graph(gen, n=120, sigma=0.15, kappa=0.16, device="cpu")
@@ -504,6 +512,26 @@ def rank_main(rank, world, store):
     compare(lambda m: gf.apply(x, backend="grid", mesh=m), "shift")
     ga = gf.apply(x, backend="dense")
     compare(lambda m: gf.adjoint(ga, backend="grid", mesh=m), "shift")
+    # two shifts (a time-vertex product): per-shift halo plans on one layout
+    from repro_torch.core import chebyshev as tc
+
+    gs = tg.connected_sensor_graph(gen, n=20, sigma=0.3, kappa=0.35, device="cpu")
+    t = 4
+    path = torch.diag(torch.ones(t - 1), 1) + torch.diag(torch.ones(t - 1), -1)
+    xy = gs.coords.repeat_interleave(t, 0)
+    tt = (torch.arange(t) / t).repeat(20)[:, None]
+    coords = torch.cat([xy, tt], dim=1)
+    shifts = [tg.SensorGraph(torch.kron(gs.adjacency, torch.eye(t)), coords),
+              tg.SensorGraph(torch.kron(torch.eye(20), path), coords)]
+    lms = [float(s.lmax_bound()) for s in shifts]
+    joint = GraphFilter.from_shifts(shifts, tc.separable_joint_coefficients([
+        tc.cheb_coefficients([tm.heat(0.6), tm.tikhonov(1.0, 1)], 6, lms[0]),
+        tc.cheb_coefficients([tm.heat(1.2)], 3, lms[1])]), lmaxes=lms)
+    xj = torch.randn(80, 2, generator=gen)
+    compare(lambda m: joint.apply(xj, backend="halo", mesh=m), "all_to_all")
+    assert gm.calls["all_to_all"] == sum(joint_counts(joint.orders))
+    aj = joint.apply(xj, backend="dense")
+    compare(lambda m: joint.adjoint(aj, backend="halo", mesh=m), "all_to_all")
     assert worst < 1e-6, worst
     print(f"rank {rank} max|group - stacked| {worst:.2e}", flush=True)
     dist.destroy_process_group()
@@ -517,7 +545,8 @@ if __name__ == "__main__":
 
 def test_group_mesh_on_gloo_matches_stacked_mesh(tmp_path):
     """4 gloo ranks: ``GroupMesh`` against ``StackedMesh(4)`` within 1e-6
-    for halo (both schedules), allgather, grid and the halo adjoint, with
+    for halo (both schedules), allgather, grid, the halo adjoint and a
+    two-shift joint filter's halo apply and adjoint, with
     equal exchange counts and, summed over ranks, equal elements moved.
     The ranks rendezvous through a file store in ``tmp_path``: no port."""
     script = tmp_path / "gloo_ranks.py"

@@ -128,13 +128,20 @@ def test_registry_and_capabilities(small):
         get_backend("nope")
     for name in available_backends():
         caps = get_backend(name).capabilities
-        assert not caps.sparse_input and not caps.multi_shift
-        with pytest.raises(ValueError, match="multi_shift"):
+        assert not caps.sparse_input
+        # multi-shift joint filters run on dense, bsr and halo, as in the reference
+        assert caps.multi_shift == (name in ("bsr", "dense", "halo"))
+        if caps.multi_shift:
             require_capability(name, "multi_shift")
+        else:
+            with pytest.raises(ValueError, match=rf"'{name}'.*'multi_shift'.*\['bsr', 'dense', 'halo'\]"):
+                require_capability(name, "multi_shift")
     with pytest.raises(AttributeError, match="unknown capability"):
         require_capability("dense", "teleport")
-    with pytest.raises(NotImplementedError, match="multi-shift"):
-        GraphFilter.from_shifts([tf.graph], tf.coeffs)
+    # one shift through from_shifts is a single-shift filter
+    one = GraphFilter.from_shifts([tf.graph], tf.coeffs, lmaxes=[tf.lmax])
+    assert one.n_shifts == 1 and one.order == ORDER and one.shift_lmaxes == (tf.lmax,)
+    np.testing.assert_allclose(one.gram_coeffs, tf.gram_coeffs, rtol=0, atol=1e-12)
     for backend in ("bsr", "dense", "matvec"):  # single-device: no network words
         opts = {"matvec": lambda v: v} if backend == "matvec" else {}
         assert tf.messages_per_apply(backend=backend, **opts) == 0

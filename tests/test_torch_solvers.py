@@ -492,13 +492,25 @@ def test_preconditioner_max_order_error_matches_reference(small):
 
 
 def test_multi_shift_problem_raises_not_implemented():
-    filt = GraphFilter(coeffs=np.ones((1, 3, 3)), lmax=2.0, gram_coeffs=np.ones((5, 5)))
+    """The joint branches are ported: a two-shift problem gets the
+    reference's tensor-grid fit, and a backend without ``multi_shift``
+    refuses it with the reference's error (nothing raises
+    ``NotImplementedError`` any more)."""
+    c = np.ones((1, 3, 3)) / 4
+    gram = tcheb.joint_gram_coefficients(c)
+    filt = GraphFilter(coeffs=c, lmax=2.0, gram_coeffs=gram, lmaxes=(2.0, 3.0))
+    jfilt = JFilter(coeffs=c, lmax=2.0, gram_coeffs=gram, lmaxes=(2.0, 3.0))
     assert filt.n_shifts == 2
     problem = ts.GramProblem(filt=filt, b=torch.zeros(4), reg=1.0)
-    with pytest.raises(NotImplementedError, match="multi-shift"):
-        ts.cheb_preconditioner(problem)
-    with pytest.raises(NotImplementedError, match="multi-shift"):
-        ts.cheb_inverse(problem)
+    jproblem = js.GramProblem(filt=jfilt, b=jnp.zeros(4), reg=1.0)
+    got, want = ts.cheb_preconditioner(problem), js.cheb_preconditioner(jproblem)
+    assert got.orders == want.orders == (8, 8) and got.rate == want.rate < 1.0
+    np.testing.assert_array_equal(got.coeffs, want.coeffs)
+    with pytest.raises(ValueError, match="'matvec'.*'multi_shift'") as got_exc:
+        ts.cheb_inverse(problem, backend="matvec", matvec=lambda v: v)
+    with pytest.raises(ValueError) as want_exc:
+        js.cheb_inverse(jproblem, backend="matvec", matvec=lambda v: v)
+    assert str(got_exc.value) == str(want_exc.value)
 
 
 def test_mu_vector_matches_reference(small):
@@ -521,19 +533,18 @@ def test_capability_queries_agree_with_reference(backend):
 
     assert tfilters.backend_is_traceable(backend) == jregistry.backend_is_traceable(backend)
     assert tfilters.backend_capabilities(backend) == tregistry.get_backend(backend).capabilities
-    # sparse input and multi-shift are not ported yet: the port declares
-    # no capability the reference's backend of the same name lacks.
-    for query in ("backend_supports_sparse", "backend_supports_multi_shift"):
-        if getattr(tfilters, query)(backend):
-            assert getattr(jregistry, query)(backend)
+    # sparse input is not ported yet: the port declares no capability the
+    # reference's backend of the same name lacks.
+    if tfilters.backend_supports_sparse(backend):
+        assert jregistry.backend_supports_sparse(backend)
     assert not tfilters.backend_supports_sparse(backend)
-    assert not tfilters.backend_supports_multi_shift(backend)
+    # multi-shift joint filters are ported: the same matrix on both sides
+    assert (tfilters.backend_supports_multi_shift(backend)
+            == jregistry.backend_supports_multi_shift(backend)
+            == (backend in ("dense", "bsr", "halo")))
     if backend in ("halo", "allgather", "grid"):
         # the distributed backends drive the host loop on both sides
         assert not jcaps(backend).traceable
-        # the known gap until the multi-shift slice: the reference's halo
-        # runs joint filters, the port's does not yet
-        assert jregistry.backend_supports_multi_shift(backend) == (backend == "halo")
     else:
         assert jcaps(backend).traceable
 
