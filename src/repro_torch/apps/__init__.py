@@ -8,6 +8,7 @@ from repro_torch.apps.denoising import (
     ssl_classify,
     wavelet_denoise_ista,
 )
+from repro_torch.apps.streaming import streaming_denoise, streaming_wavelet_denoise
 
 __all__ = [
     "denoise_tikhonov",
@@ -15,5 +16,7 @@ __all__ = [
     "inverse_filter",
     "smooth_heat",
     "ssl_classify",
+    "streaming_denoise",
+    "streaming_wavelet_denoise",
     "wavelet_denoise_ista",
 ]

@@ -26,8 +26,9 @@ a ``GroupMesh``), and the local products are batched matmuls over it.
 
 The partition plan is built on the host in float64 numpy exactly as the
 reference builds it, so every table equals the reference's bit for bit;
-the tables then live on the plan's device. Not ported yet:
-``repair_partition_plan`` (the dynamic-graph slice).
+the tables then live on the plan's device. ``repair_partition_plan``
+patches a plan after a topology delta the same way, on the host, and
+puts the repaired tables back on the plan's device.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ __all__ = [
     "PartitionPlan",
     "build_partition_plan",
     "build_shift_partition_plans",
+    "repair_partition_plan",
     "plan_row_slabs",
     "halo_matvec",
     "halo_cheb_apply_overlapped",
@@ -305,6 +307,180 @@ def build_shift_partition_plans(
     order, boundary_counts, n_local = _partition_layout(union, c, n_parts)
     return tuple(
         _plan_tables(a, order, boundary_counts, n_parts, n_local, dtype, dev) for a in mats
+    )
+
+
+def repair_partition_plan(
+    plan: PartitionPlan, adjacency, touched, dtype: torch.dtype = torch.float32
+) -> PartitionPlan:
+    """Incrementally patch a plan after a topology delta (reference
+    ``repair_partition_plan``, DESIGN.md Sec. 10).
+
+    ``touched`` must contain BOTH endpoints of every changed edge (what
+    ``GraphDelta.touched`` / ``apply_delta_inplace`` return); ``adjacency``
+    is the NEW (N, N) matrix. The vertex->partition assignment is kept, so
+    only the *dirty* partitions (owners of touched vertices) get new
+    tables: a changed edge makes both endpoints touched, hence both owners
+    dirty, so a clean partition kept every incident edge of every vertex
+    it owns. Per pair: dirty p and dirty q recompute p's need set from q,
+    q's send lanes and p's halo block from fresh rows; dirty p and clean q
+    keep the values and lanes, row-permuted by p's new boundary-first
+    order, and remap p's send table to q through the inverse permutation.
+    ``n_boundary`` and ``max_halo`` only ever grow.
+
+    The work is the reference's host numpy, on the old tables read through
+    ``_host``, so every table equals the reference's repaired plan bit for
+    bit; the repaired tables go back to the plan's own device.
+    """
+    if plan.boundary_counts is None:
+        raise ValueError("repair requires a plan built with boundary_counts")
+    touched = np.unique(np.asarray(touched, dtype=np.int64))
+    if touched.size == 0:
+        return plan
+    a = _host(adjacency)
+    n, n_local, n_parts = plan.n, plan.n_local, plan.n_parts
+    n_pad = n_local * n_parts
+    old_l_own = _host(plan.l_own)
+    old_l_halo = _host(plan.l_halo)
+    old_send = _host(plan.send_idx)
+    max_halo = old_send.shape[-1]
+
+    # Slot bookkeeping in the *current* plan order. Real vertices occupy
+    # slots [0, n) (the builder asserts it; re-asserted after the permute).
+    ids = np.full(n_pad, -1, dtype=np.int64)
+    ids[:n] = plan.order[:n]
+    slot_of = np.empty(n, dtype=np.int64)
+    slot_of[ids[:n]] = np.arange(n)
+    owner_vert = slot_of // n_local  # partition owning each original id
+
+    dirty = sorted(set(int(p) for p in np.unique(owner_vert[touched])))
+    dirty_set = set(dirty)
+
+    if plan.pair_counts is not None:
+        pair_counts = np.asarray(plan.pair_counts).copy()
+    else:
+        # A plan without pair counts: recover the used lanes from the halo
+        # tables' zero pattern.
+        pair_counts = np.zeros((n_parts, n_parts), dtype=np.int64)
+        for p in range(n_parts):
+            for q in range(n_parts):
+                if q == p:
+                    continue
+                cols = old_l_halo[p][:, q * max_halo : (q + 1) * max_halo]
+                pair_counts[p, q] = int(np.any(cols != 0.0, axis=0).sum())
+
+    # Fresh Laplacian rows and boundary split for every dirty partition.
+    boundary_counts = np.asarray(plan.boundary_counts).copy()
+    rows_new: dict[int, np.ndarray] = {}  # p -> (n_local, n) rows, OLD slot order
+    perms: dict[int, np.ndarray] = {}
+    for p in dirty:
+        sl = slice(p * n_local, (p + 1) * n_local)
+        ids_p = ids[sl]
+        real = ids_p >= 0
+        rp = ids_p[real]
+        rows = np.zeros((n_local, n))
+        rows[real] = -a[rp]
+        rows[np.nonzero(real)[0], rp] = a[rp].sum(axis=1, dtype=np.float64)
+        rows_new[p] = rows
+        own_col = np.zeros(n, dtype=bool)
+        own_col[rp] = True
+        is_boundary = np.any(rows[:, ~own_col] != 0.0, axis=1)
+        boundary_counts[p] = int(is_boundary.sum())
+        # Stable boundary-first reorder of the CURRENT local order; padding
+        # rows are all-zero, hence interior, and stay at the tail.
+        perms[p] = np.concatenate(
+            [np.nonzero(is_boundary)[0], np.nonzero(~is_boundary)[0]]
+        )
+    n_boundary = max(plan.n_boundary, 1, int(boundary_counts.max()))
+
+    new_ids = ids.copy()
+    for p, perm in perms.items():
+        sl = slice(p * n_local, (p + 1) * n_local)
+        new_ids[sl] = ids[sl][perm]
+    if not np.all(new_ids[:n] >= 0):
+        raise AssertionError("padding escaped the global tail")
+    new_order = new_ids[:n]
+    slot_new = np.empty(n, dtype=np.int64)
+    slot_new[new_order] = np.arange(n)
+
+    # Grow max_halo only if a dirty-dirty pair outgrew its lanes.
+    colmasks = {p: np.any(rows_new[p] != 0.0, axis=0) for p in dirty}
+    needed = max_halo
+    for p in dirty:
+        cand = np.nonzero(colmasks[p])[0]
+        for q in dirty:
+            if q != p:
+                needed = max(needed, int((owner_vert[cand] == q).sum()))
+    if needed > max_halo:
+        l_halo = np.zeros((n_parts, n_local, n_parts * needed), old_l_halo.dtype)
+        send_idx = np.zeros((n_parts, n_parts, needed), old_send.dtype)
+        for p in range(n_parts):
+            for q in range(n_parts):
+                if q == p:
+                    continue
+                cnt = int(pair_counts[p, q])
+                l_halo[p][:, q * needed : q * needed + cnt] = old_l_halo[p][
+                    :, q * max_halo : q * max_halo + cnt
+                ]
+                send_idx[q, p, :cnt] = old_send[q, p, :cnt]
+        old_l_halo, old_send, max_halo = l_halo, send_idx, needed
+
+    l_own = old_l_own.copy()
+    l_halo = old_l_halo.copy()
+    send_idx = old_send.copy()
+
+    for p in dirty:
+        perm = perms[p]
+        inv = np.empty(n_local, dtype=np.int64)
+        inv[perm] = np.arange(n_local)
+        rows_p = rows_new[p][perm]  # rows in p's NEW local order
+        ids_p_new = new_ids[p * n_local : (p + 1) * n_local]
+        real = ids_p_new >= 0
+        blk = np.zeros((n_local, n_local))
+        blk[:, real] = rows_p[:, ids_p_new[real]]
+        l_own[p] = blk
+        cand = np.nonzero(colmasks[p])[0]
+        for q in range(n_parts):
+            if q == p:
+                continue
+            if q in dirty_set:
+                t = cand[owner_vert[cand] == q]
+                t = t[np.argsort(slot_new[t], kind="stable")]
+                cnt = len(t)
+                lanes = slot_new[t] - q * n_local
+                if not np.all(lanes < boundary_counts[q]):
+                    raise AssertionError(f"send lane outside the boundary block {(p, q)}")
+                block = np.zeros((n_local, max_halo), l_halo.dtype)
+                block[:, :cnt] = rows_p[:, t]
+                l_halo[p][:, q * max_halo : (q + 1) * max_halo] = block
+                lane_tbl = np.zeros(max_halo, send_idx.dtype)
+                lane_tbl[:cnt] = lanes
+                send_idx[q, p] = lane_tbl
+                pair_counts[p, q] = cnt
+            else:
+                # Clean q: identical values and lanes; rows follow p's permute.
+                l_halo[p][:, q * max_halo : (q + 1) * max_halo] = old_l_halo[p][
+                    perm, q * max_halo : (q + 1) * max_halo
+                ]
+                cnt = int(pair_counts[q, p])  # lanes q reads from p
+                lane_tbl = np.zeros(max_halo, send_idx.dtype)
+                lane_tbl[:cnt] = inv[old_send[p, q, :cnt]]
+                if not np.all(lane_tbl[:cnt] < boundary_counts[p]):
+                    raise AssertionError(f"send lane outside the boundary block {(p, q)}")
+                send_idx[p, q] = lane_tbl
+
+    dev = plan.l_own.device
+    return PartitionPlan(
+        order=new_order,
+        l_own=torch.as_tensor(l_own).to(device=dev, dtype=dtype),
+        l_halo=torch.as_tensor(l_halo).to(device=dev, dtype=dtype),
+        send_idx=torch.as_tensor(send_idx, dtype=torch.int64).to(dev),
+        halo_words=int(pair_counts.sum()),
+        n_local=n_local,
+        n=n,
+        n_boundary=n_boundary,
+        boundary_counts=boundary_counts,
+        pair_counts=pair_counts,
     )
 
 

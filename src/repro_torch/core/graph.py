@@ -32,6 +32,7 @@ __all__ = [
     "laplacian",
     "degree_vector",
     "lmax_upper_bound",
+    "lmax_power_iteration",
     "is_connected",
     "khop_neighborhood",
     "spatial_partition_order",
@@ -210,6 +211,57 @@ def lmax_upper_bound(adjacency: torch.Tensor) -> torch.Tensor:
     d = degree_vector(adjacency)
     pair = d[:, None] + d[None, :]
     return torch.max(torch.where(adjacency > 0, pair, torch.zeros_like(pair)))
+
+
+def lmax_power_iteration(
+    laplacian_matrix,
+    iters: int = 100,
+    *,
+    v0=None,
+    seed: int = 0,
+    return_vector: bool = False,
+):
+    """Tighter lambda_max estimate via power iteration (beyond-paper knob).
+
+    A slightly inflated Rayleigh quotient (x1.01) keeps the Chebyshev domain
+    valid even if the iteration has not fully converged. Runs on the
+    matrix's device (a numpy matrix is read as a CPU tensor).
+
+    Args:
+      v0: optional warm-start vector (tensor or array), e.g. the converged
+        iterate from the previous topology, which the churn
+        re-certification path carries across frames. Normalized
+        internally; must not be the zero vector.
+      seed: seed of the default start. The reference draws it from
+        ``jax.random.PRNGKey(seed)``; the port draws
+        ``np.random.default_rng(seed).standard_normal(n) / sqrt(n)`` and adds
+        the same alternating component (+-1/n), so the start is
+        deterministic per seed and not orthogonal to the top eigenspace on
+        bipartite-ish graphs, but it is not the reference's start: compare
+        the two packages with an explicit ``v0`` or at convergence.
+      return_vector: also return the final iterate, for reuse as the next
+        call's ``v0``.
+
+    Returns:
+      The estimate as a 0-dim tensor, or ``(estimate, vector)`` with
+      ``return_vector``.
+    """
+    lap = torch.as_tensor(laplacian_matrix)
+    n = lap.shape[0]
+    if v0 is None:
+        v = np.random.default_rng(seed).standard_normal(n) / np.sqrt(n)
+        v = v + np.where(np.arange(n) % 2 == 0, 1.0, -1.0) / n
+        v = torch.as_tensor(v, device=lap.device).to(lap.dtype)
+    else:
+        v = torch.as_tensor(v0).to(device=lap.device, dtype=lap.dtype)
+    v = v / (torch.linalg.norm(v) + 1e-30)
+    for _ in range(iters):
+        w = lap @ v
+        v = w / (torch.linalg.norm(w) + 1e-30)
+    est = 1.01 * (v @ (lap @ v) / (v @ v))
+    if return_vector:
+        return est, v
+    return est
 
 
 # ---- host-side numpy helpers: copies of the reference, bit for bit -------

@@ -8,9 +8,10 @@ missing card never turns into a silent CPU run. Tests pass
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "upload"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -26,3 +27,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         )
     return dev
 
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A host numpy array as a tensor of its own on ``device``. A CUDA
+    upload goes through pinned memory without blocking the host (a copy
+    from pageable memory synchronises the stream); the caching host
+    allocator keeps the pinned buffer alive until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -3,7 +3,7 @@ several backends (mirrors ``repro/filters``). Importing this package
 registers the ``dense``, ``bsr``, ``halo``, ``allgather``, ``grid`` and
 ``matvec`` backends."""
 
-from repro_torch.filters.api import GraphFilter, bucket_size, shift_matvec_counts
+from repro_torch.filters.api import GraphFilter, bucket_size, gather_reach, shift_matvec_counts
 from repro_torch.filters.registry import (
     BackendCapabilities,
     FilterBackend,
@@ -28,6 +28,7 @@ __all__ = [
     "backend_supports_multi_shift",
     "backend_supports_sparse",
     "bucket_size",
+    "gather_reach",
     "get_backend",
     "register_backend",
     "require_capability",

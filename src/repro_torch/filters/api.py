@@ -17,8 +17,8 @@ of a sensor Laplacian and a temporal Laplacian)::
 
 Multi-shift filters run on the backends that declare ``multi_shift``
 (``dense``, ``bsr``, ``halo``). Signals are tensors; a non-tensor signal
-is placed on the bound graph's device. Not ported yet: ``panel_program``
-(serve slice) and ``apply_sparse`` (streaming slice).
+is placed on the bound graph's device. ``apply_sparse`` is the streaming
+layer's delta path. Not ported yet: ``panel_program`` (serve slice).
 """
 
 from __future__ import annotations
@@ -32,9 +32,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import chebyshev
 from repro_torch.core.graph import SensorGraph
+from repro_torch.device import upload
 from repro_torch.filters import registry
 
-__all__ = ["GraphFilter", "bucket_size", "shift_matvec_counts"]
+__all__ = ["GraphFilter", "bucket_size", "gather_reach", "shift_matvec_counts"]
 
 Multiplier = Callable[[np.ndarray], np.ndarray]
 
@@ -58,6 +59,27 @@ def bucket_size(n: int, cap: int | None = None, *, floor: int = _BUCKET_FLOOR) -
     while b < n:
         b *= 2
     return b if cap is None else min(b, cap)
+
+
+def gather_reach(lap: torch.Tensor, idx, b: int, *rows: torch.Tensor):
+    """Restrict to a reach R on ``lap``'s device, padded to bucket ``b``.
+
+    Uploads the reach's host indices ``idx`` once, gathers ``L[R, R]``
+    into a zero (b, b) matrix and each of ``rows`` (leading axis N) into
+    zero (b, ...) rows. Zero padding is a fixed point of the recurrence,
+    so slicing ``[:len(idx)]`` off a restricted result is exact. Returns
+    ``(idx_t, lap_sub, *row_subs)``.
+    """
+    idx_t = upload(np.asarray(idx, dtype=np.int64), lap.device)
+    k = idx_t.shape[0]
+    lap_sub = lap.new_zeros((b, b))
+    lap_sub[:k, :k] = lap[idx_t[:, None], idx_t]
+    subs = []
+    for x in rows:
+        sub = x.new_zeros((b,) + x.shape[1:])
+        sub[:k] = x[idx_t]
+        subs.append(sub)
+    return (idx_t, lap_sub, *subs)
 
 
 def shift_matvec_counts(orders: Sequence[int]) -> tuple[int, ...]:
@@ -355,6 +377,38 @@ class GraphFilter:
             f = F.pad(f, (0, b - k))
         out = self.apply(f, backend=backend, **opts)
         return out[:, :, :k]
+
+    def apply_sparse(self, delta, support, *, backend: str = "dense", **opts) -> torch.Tensor:
+        """Apply ``Phi~`` to a signal supported on a sparse vertex set.
+
+        When ``delta`` is nonzero only on ``support``, the degree-M
+        recurrence touches only the M-hop neighbourhood of that set, so
+        backends declaring ``sparse_input`` (``dense``) run it on the
+        induced submatrix. Backends without the capability, and
+        multi-shift filters (whose reach spans several edge sets), fall
+        back to a full ``apply``: the same output, no savings.
+
+        Parameters
+        ----------
+        delta : torch.Tensor
+            (N,) or (N, F) signal, zero outside ``support``.
+        support : array-like
+            (N,) boolean mask (or index array) of the nonzero vertices.
+        **opts
+            Backend options; ``reach=`` passes a precomputed (N,) host
+            boolean M-hop mask (the streaming layer walks it anyway).
+
+        Returns
+        -------
+        torch.Tensor
+            (eta,) + delta.shape, equal to ``apply(delta)`` up to float
+            tolerance, zero outside the M-hop reach of ``support``.
+        """
+        be = self._backend(backend)
+        if not be.capabilities.sparse_input or self.n_shifts > 1:
+            return self.apply(delta, backend=backend, **opts)
+        state = self._backend_state(be, opts)
+        return be.apply_sparse(self, state, self._signal(delta), support, **opts)
 
     def adjoint(self, a, *, backend: str = "dense", **opts) -> torch.Tensor:
         """Apply the adjoint ``Phi~* a`` (paper eq. 13); ``a`` is

@@ -47,11 +47,13 @@ from repro_torch.core import graph as graph_lib
 from repro_torch.core.distributed import (
     DistributedGraphContext,
     MultiShiftGraphContext,
+    _host,
     build_partition_plan,
     build_shift_partition_plans,
     grid_cheb_apply_ca,
     grid_slab_matvec,
 )
+from repro_torch.filters.api import bucket_size, gather_reach
 from repro_torch.filters.registry import (
     BackendCapabilities,
     register_backend,
@@ -113,14 +115,27 @@ class MatvecBackend:
         return 0
 
 
+def _restricted_cheb_apply(lap_sub, d_sub, coeffs, lmax):
+    """Recurrence on the induced submatrix over the order-hop reach.
+
+    Exact, not approximate: every length-k walk (k <= M) from the delta's
+    support stays inside the M-hop neighbourhood, so the polynomial in the
+    *submatrix* of L (true degrees on the diagonal) agrees with the full
+    filter on that neighbourhood (DESIGN.md Sec. 8).
+    """
+    return chebyshev.cheb_apply(lambda v: lap_sub @ v, d_sub, coeffs, lmax)
+
+
 @register_backend
 class DenseBackend:
     """Dense reference backend: ``torch.matmul`` against the dense
-    Laplacian, as the reference leaves ``lap @ v`` to XLA."""
+    Laplacian, as the reference leaves ``lap @ v`` to XLA. It declares
+    ``sparse_input``: ``apply_sparse`` restricts the recurrence to the
+    order-hop reach of the delta's support."""
 
     name = "dense"
     prepare_opts: frozenset[str] = frozenset()
-    capabilities = BackendCapabilities(traceable=True, multi_shift=True)
+    capabilities = BackendCapabilities(traceable=True, sparse_input=True, multi_shift=True)
 
     def prepare(self, filt, **_):
         _require_graph(filt, self.name)
@@ -131,6 +146,41 @@ class DenseBackend:
     @staticmethod
     def _matvecs(laps: tuple):
         return [lambda v, m=m: torch.tensordot(m, v, dims=1) for m in laps]
+
+    def apply_sparse(self, filt, lap, delta, support, *, coeffs=None, reach=None, **_):
+        """``Phi~ delta`` for ``delta`` supported on ``support``: the
+        recurrence on the induced submatrix over the M-hop reach only.
+
+        The submatrix size is rounded up to a power-of-two bucket so a
+        stream of slightly varying change sets keeps a handful of shapes.
+        ``reach=`` takes a precomputed (N,) host boolean M-hop mask;
+        without it the reach is walked here on the host (which reads the
+        adjacency back from the graph's device). When the bucket reaches
+        N, the full apply is the same work without the scatter. The gather
+        of ``L[R, R]`` into a zero (b, b) submatrix and the scatter back
+        are device ops after one upload of the reach's indices.
+        """
+        c = _coeffs_or(filt, coeffs)
+        g = _require_graph(filt, self.name)
+        _check_device(delta, lap.device)
+        if reach is None:
+            reach = graph_lib.khop_neighborhood(
+                _host(g.adjacency), _host(support), c.shape[1] - 1
+            )
+        idx = np.nonzero(_host(reach))[0]
+        n, k = delta.shape[0], len(idx)
+        b = bucket_size(k, n)
+        if b >= n:
+            return self.apply(filt, lap, delta, coeffs=coeffs)
+        squeeze = delta.ndim == 1
+        d2 = delta[:, None] if squeeze else delta
+        idx_t, lap_sub, d_sub = gather_reach(lap, idx, b, d2)
+        out_sub = _restricted_cheb_apply(
+            lap_sub, d_sub, cheb_bsr.device_coeffs(c, lap.device), filt.lmax
+        )
+        out = d2.new_zeros((c.shape[0],) + d2.shape)
+        out[:, idx_t] = out_sub[:, :k]
+        return out[:, :, 0] if squeeze else out
 
     def apply(self, filt, lap, f, *, coeffs=None, **_):
         c = _coeffs_or(filt, coeffs)

@@ -39,8 +39,11 @@ class BackendCapabilities:
         (``solvers/loops.py`` then records histories as the reference's
         compiled loops do).
     sparse_input : bool
-        True iff the backend implements ``apply_sparse``. No backend of
-        the port does yet (the streaming slice adds it).
+        True iff the backend implements ``apply_sparse``: the recurrence
+        restricted to the order-hop reach of a sparsely supported signal
+        (the streaming layer's delta path). ``dense`` does, as in the
+        reference; on the others ``GraphFilter.apply_sparse`` falls back
+        to a full ``apply``.
     multi_shift : bool
         True iff the backend evaluates joint polynomials of several
         commuting shift operators (``GraphFilter.from_shifts``): ``dense``,

@@ -128,7 +128,8 @@ def test_registry_and_capabilities(small):
         get_backend("nope")
     for name in available_backends():
         caps = get_backend(name).capabilities
-        assert not caps.sparse_input
+        # the restricted delta apply runs on dense only, as in the reference
+        assert caps.sparse_input == (name == "dense")
         # multi-shift joint filters run on dense, bsr and halo, as in the reference
         assert caps.multi_shift == (name in ("bsr", "dense", "halo"))
         if caps.multi_shift:

@@ -36,7 +36,7 @@ def test_port_imports_neither_jax_nor_reference():
         env={**os.environ, "PYTHONPATH": str(SRC)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 29  # every module of the slices was imported
+    assert int(proc.stdout.strip()) >= 36  # every module of the slices was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -77,6 +77,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         collectives.StackedMesh(8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         distributed.build_partition_plan(np.zeros((4, 4)), None, 2)
+    from repro_torch.apps import streaming_denoise
+    from repro_torch.dynamic import mobile_sensor_scenario
+    from repro_torch.filters import GraphFilter
+    from repro_torch.stream import StreamingFilter, StreamingLasso
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mobile_sensor_scenario(16, 2)
+    g = tgraph.grid_graph(3, device="cpu")
+    filt = GraphFilter.from_coefficients(np.ones((1, 3)), 8.0, graph=g)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingFilter(filt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingLasso(filt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        streaming_denoise(g, [np.zeros(9, np.float32)])
     from repro_torch import distributed_denoising, distributed_wavelet_ista, quickstart
 
     for module in (quickstart, distributed_denoising, distributed_wavelet_ista):

@@ -533,11 +533,10 @@ def test_capability_queries_agree_with_reference(backend):
 
     assert tfilters.backend_is_traceable(backend) == jregistry.backend_is_traceable(backend)
     assert tfilters.backend_capabilities(backend) == tregistry.get_backend(backend).capabilities
-    # sparse input is not ported yet: the port declares no capability the
-    # reference's backend of the same name lacks.
-    if tfilters.backend_supports_sparse(backend):
-        assert jregistry.backend_supports_sparse(backend)
-    assert not tfilters.backend_supports_sparse(backend)
+    # sparse input is ported: the same matrix on both sides
+    assert (tfilters.backend_supports_sparse(backend)
+            == jregistry.backend_supports_sparse(backend)
+            == (backend == "dense"))
     # multi-shift joint filters are ported: the same matrix on both sides
     assert (tfilters.backend_supports_multi_shift(backend)
             == jregistry.backend_supports_multi_shift(backend)
