@@ -100,7 +100,28 @@ Phases, each printing its own lines:
    words and no new churn-kernel key over the second half; then
    at F = 256 (2e-4). Each push series reports per push its CUDA-event ms,
    the host-side ms (reach BFS, topology patch, tracker, plan repair), the
-   synchronising operations, and the device's idle share.
+   synchronising operations, and the device's idle share;
+10. serving (``repro_torch.serve``, ``GraphFilter.panel_program``) at the
+   deployment shape on bsr, every engine and program run counted: one
+   apply program per bucket (8 to 128), each recorded as one CUDA graph,
+   its replays against eager calls (1e-6), each column against the solo
+   bsr apply (1e-5) and the panel against dense (2e-4), one union launch
+   per replay, ``memory_allocated`` flat over 5 batches; the union kernel
+   replayed from a graph against its plain version at F = 8 and 128; a
+   stepwise program (M step launches per replay, the step kernel replayed
+   from a graph against its plain version); the FISTA-8 solve programs at
+   buckets 8 and 128 (M + 1 union launches per replay); per bucket the
+   eager and replay ms, the host ms to pack, upload and copy back a panel,
+   and the synchronising operations per panel. The sync engine
+   (``panel_width=128``) on 300 requests per lane against solo applies,
+   solo FISTA and standalone streams, launches exact. The async engine on
+   a seeded 100000-stream trace (a numpy copy of
+   ``benchmarks/loadgen.py::make_trace``), paced at 1000 requests/s over 2
+   virtual seconds and in a burst at t = 0, each replayed warm and then
+   measured: everything served, no recompile and no capture in the
+   measured replay, union launches equal to the lanes' counts; per lane
+   p50/p99 virtual latency, capacity beside the sync engine's, pad waste,
+   evictions and the device's idle share.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -112,6 +133,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -154,6 +176,18 @@ STREAM_FULL_WORDS, STREAM_F, STREAM_REPEATS, DEPLOY_STREAM_FRAMES = 12800, DEPLO
 CHURN_SLOTS, CHURN_FRAMES, CHURN_ORDER, CHURN_PARTS = 1600, 10, 10, 8
 CHURN_MEAN, CHURN_WORDS_SUM, CHURN_FULL_WORDS_MEAN = 0.0286, (10958, 10961), 2664
 LASSO_TOL, LASSO_BUDGET = 5e-5, 12000  # the streaming lasso's tolerance and budget
+# The serving phase: the panel buckets, the FISTA budget of the solve lane,
+# the sync engine's requests per lane and frame streams, and the seeded
+# trace (benchmarks/loadgen.py:67-118: 100000 streams, seed 0, hot 1 % of
+# the streams with 50 % of the mass, lanes 0.90/0.08/0.02, 8 tenants, 64
+# pooled signals) paced at SERVE_RATE requests/s over SERVE_SECONDS, with
+# a SERVE_BUDGET_S latency budget. Replays against eager calls within
+# REPLAY_TOL, columns against solo applies within SOLO_TOL
+# (tests/test_engine.py), solves against solo FISTA within SERVE_SOLVE_TOL
+# (tests/test_solvers.py:265-290).
+SERVE_BUCKETS, SERVE_ITERS, SERVE_REQUESTS, SERVE_FRAME_STREAMS = (8, 16, 32, 64, 128), 8, 300, 16
+SERVE_STREAMS, SERVE_RATE, SERVE_SECONDS, SERVE_BUDGET_S = 100_000, 1000.0, 2.0, 0.05
+REPLAY_TOL, SOLO_TOL, SERVE_SOLVE_TOL = 1e-6, 1e-5, 1e-4
 
 
 def say(msg: str) -> None:
@@ -197,20 +231,86 @@ def device_busy_ms(fn, runs=5):
     return kernel_ms_once(lambda: [fn() for _ in range(runs)]) / runs
 
 
-def kernel_ms_once(fn):
-    """The summed device time (ms) of every kernel ``torch.profiler``
-    traces in one call of ``fn``, with no warm-up call (for stateful
-    calls such as a stream's push)."""
+PROFILE_MARGIN_S = 0.25
+
+
+def kernel_profile_once(fn):
+    """One call of ``fn`` under ``torch.profiler``, with no warm-up call
+    (for stateful calls such as a stream's push): the summed device time
+    (ms) of every kernel traced, and how many traced kernels were the
+    union kernel and the step kernels (strip and generic), by name. The
+    profiler traces a replayed CUDA graph's kernels one by one.
+
+    The profiler can miss records: on the H100, late in this script, a
+    session traced 13 of a replay's 20 step kernels, and without these
+    margins a 0.5 s session lost one union kernel of 64. So its counts
+    are reported, not held to the launch counters (``graph_kernel_nodes``
+    reads a recorded graph's launches from the graph itself), and the
+    window is padded with ``PROFILE_MARGIN_S`` of idle time on each side."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     us = sum(getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
-             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
-    return us / 1e3
+             for ev in evs)
+    union = sum(ev.count for ev in evs if "cheb_union_kernel" in ev.key)
+    step = sum(ev.count for ev in evs if "cheb_step" in ev.key)
+    return us / 1e3, (union, step)
+
+
+def graph_kernel_nodes(graph) -> tuple[int, int]:
+    """The union and step kernel nodes (strip and generic) of a recorded
+    ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``: what one
+    replay launches, read from the graph through the driver's graph API
+    (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams_v2``, the kernel's
+    name from ``cuFuncGetName`` or ``cuKernelGetName``)."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                    ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = fn(*args)
+        require(rc == 0, f"{fn.__name__} returned CUresult {rc}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call(cu.cuGraphGetNodes, raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cu.cuGraphGetNodes, raw, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call(cu.cuGraphNodeGetType, ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = KernelNodeParams(), ctypes.c_char_p()
+        call(cu.cuGraphKernelNodeGetParams_v2, ctypes.c_void_p(node), ctypes.byref(params))
+        if params.func:
+            call(cu.cuFuncGetName, ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            call(cu.cuKernelGetName, ctypes.byref(name), ctypes.c_void_p(params.kern))
+        names.append(name.value.decode())
+    return (sum("cheb_union_kernel" in nm for nm in names),
+            sum("cheb_step" in nm for nm in names))
+
+
+def kernel_ms_once(fn):
+    """The summed device time (ms) of every kernel traced in one call of
+    ``fn`` (``kernel_profile_once``)."""
+    return kernel_profile_once(fn)[0]
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1306,7 +1406,530 @@ def stream_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal, check_un
     return out
 
 
+def make_trace(n_streams: int, seconds: float, rate: float, *, seed: int = 0,
+               hot_frac: float = 0.01, hot_mass: float = 0.5,
+               lane_mix=(0.90, 0.08, 0.02), n_tenants: int = 8, n_signals: int = 64,
+               burst: bool = False) -> dict:
+    """A numpy copy of ``benchmarks/loadgen.py::make_trace`` (:67-118):
+    Poisson arrivals at ``rate`` over ``seconds`` (all at t = 0 when
+    ``burst``), ``hot_frac`` of the streams carrying ``hot_mass`` of the
+    requests, lanes drawn from ``lane_mix``; the same draws in the same
+    order, so the same seed gives the same trace."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_requests = max(1, int(round(rate * seconds)))
+    if burst:
+        t_arrive = np.zeros(n_requests)
+    else:
+        t_arrive = np.cumsum(rng.exponential(1.0 / rate, n_requests))
+    n_hot = max(1, int(round(hot_frac * n_streams)))
+    is_hot = rng.random(n_requests) < hot_mass
+    hot_ids = rng.integers(0, n_hot, n_requests)
+    cold_ids = (rng.integers(0, max(n_streams - n_hot, 1), n_requests) + n_hot).clip(
+        max=n_streams - 1)
+    stream = np.where(is_hot, hot_ids, cold_ids)
+    mix = np.asarray(lane_mix, np.float64)
+    lane = rng.choice(3, size=n_requests, p=mix / mix.sum())
+    return {"t_arrive": t_arrive, "stream": stream.astype(np.int64), "lane": lane.astype(np.int8),
+            "tenant": (stream % n_tenants).astype(np.int64),
+            "signal": rng.integers(0, n_signals, n_requests)}
+
+
+def signal_pool(n_vertices: int, n_signals: int, seed: int = 0):
+    """``benchmarks/loadgen.py::make_signal_pool``: the (n_signals, N)
+    float32 payloads the trace's requests index into."""
+    import numpy as np
+
+    return np.random.default_rng(seed + 1).normal(size=(n_signals, n_vertices)).astype(np.float32)
+
+
+def drive_async(engine, trace: dict, pool, frame_streams: int) -> dict:
+    """Replay ``trace`` against an ``AsyncGraphFilterEngine`` on its
+    virtual clock, as ``benchmarks/loadgen.py::_drive_async`` does: between
+    arrivals every lane whose deadline falls in the gap is pumped, frames
+    fold onto ``frame_streams`` engine streams. Returns the run's served
+    and rejected counts, per-lane latencies and the deltas of the
+    engine's counters."""
+    import numpy as np
+
+    from repro_torch.serve import LANES, AdmissionError
+
+    base = engine.stats()
+    base_pad, base_slots = engine.pad_slots, engine.panel_slots
+    engine.reset_clock()  # a fresh virtual timeline per replay
+
+    def pump(t_now):
+        while True:
+            due = [d for lane in LANES
+                   if (d := engine.scheduler.oldest_deadline(lane)) is not None and d <= t_now]
+            if not due:
+                return
+            engine.step(now=min(due))
+
+    tickets, rejected = [], 0
+    t_arrive = trace["t_arrive"]
+    for i in range(len(t_arrive)):
+        t = float(t_arrive[i])
+        pump(t)
+        sig = pool[trace["signal"][i]]
+        tenant = f"t{trace['tenant'][i]}"
+        code = int(trace["lane"][i])
+        try:
+            if code == 0:
+                tk = engine.submit(sig, tenant=tenant, now=t)
+            elif code == 1:
+                tk = engine.submit_solve(sig, tenant=tenant, now=t)
+            else:
+                tk = engine.submit_frame(int(trace["stream"][i]) % frame_streams, sig,
+                                         tenant=tenant, now=t)
+            tickets.append(tk)
+        except AdmissionError:
+            rejected += 1
+        engine.step(now=t)
+    t = float(t_arrive[-1])
+    while engine.scheduler.pending():
+        due = [d for lane in LANES if (d := engine.scheduler.oldest_deadline(lane)) is not None]
+        t = max(t, min(due))
+        engine.step(now=t)
+    after = engine.stats()
+    slots = engine.panel_slots - base_slots
+    return {
+        "requests": len(t_arrive), "served": sum(tk.done for tk in tickets),
+        "rejected": rejected,
+        "lat": {lane: np.asarray([tk.latency_s for tk in tickets if tk.lane == lane and tk.done])
+                for lane in LANES},
+        "busy_s": after["busy_s"] - base["busy_s"],
+        "makespan_s": max(engine.busy_until, t) - float(t_arrive[0]),
+        **{k: after[k] - base[k] for k in ("recompiles", "captures", "replays", "applies",
+                                           "solves", "frames_served", "streams_evicted")},
+        "frames_filtered": sum(tk.result.mode != "cached" for tk in tickets if tk.lane == "frame"),
+        "pad_waste": (engine.pad_slots - base_pad) / max(slots, 1),
+    }
+
+
+def drive_sync(engine, trace: dict, pool, frame_streams: int) -> dict:
+    """Replay ``trace`` against a ``GraphFilterEngine``, as
+    ``benchmarks/loadgen.py::_drive_sync`` does: a lane's callers block
+    until its fixed-width panel fills, each flush is stamped on the same
+    single-server virtual timeline. Returns served, busy seconds and the
+    latencies."""
+    import numpy as np
+
+    busy_until, busy_s, lat = 0.0, 0.0, []
+    pending = {0: [], 1: [], 2: []}
+
+    def complete(code, t_now, dt):
+        nonlocal busy_until, busy_s
+        busy_until = max(t_now, busy_until) + dt
+        busy_s += dt
+        lat.extend(busy_until - ts for ts in pending[code])
+        pending[code].clear()
+
+    for i in range(len(trace["t_arrive"])):
+        t = float(trace["t_arrive"][i])
+        sig = pool[trace["signal"][i]]
+        code = int(trace["lane"][i])
+        t0 = time.perf_counter()
+        if code == 0:
+            out = engine.submit(sig)
+        elif code == 1:
+            out = engine.submit_solve(sig)
+        else:
+            out = engine.submit_frame(int(trace["stream"][i]) % frame_streams, sig)
+        dt = time.perf_counter() - t0
+        pending[code].append(t)
+        if out is not None:
+            complete(code, t, dt)
+    t_end = float(trace["t_arrive"][-1])
+    for code, flush in ((0, engine.flush), (1, engine.flush_solves), (2, engine.flush_frames)):
+        if pending[code]:
+            t0 = time.perf_counter()
+            flush()
+            complete(code, t_end, time.perf_counter() - t0)
+    return {"served": len(lat), "busy_s": busy_s, "lat": np.asarray(lat)}
+
+
+def pct_ms(lat) -> str:
+    """p50 / p99 of latencies in seconds, as milliseconds."""
+    import numpy as np
+
+    if len(lat) == 0:
+        return "none"
+    return f"p50 {np.percentile(lat, 50) * 1e3:.3f} p99 {np.percentile(lat, 99) * 1e3:.3f} ms"
+
+
+def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
+    """Phase 10: the serving layer at the deployment shape (phase 4's
+    filter on bsr). (1) One ``panel_program`` per bucket, each recorded
+    as one CUDA graph, against eager and solo applies and dense; each
+    kernel inside a recorded graph against its plain version; one
+    stepwise program; the FISTA solve programs. (2) The sync engine on
+    each lane, against solo calls. (3) The async engine on a seeded trace,
+    paced (warm, then measured) and in a burst, beside the sync engine.
+    Every engine and program run is counted (``count``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import upload
+    from repro_torch.filters import CudaGraphProgram
+    from repro_torch.kernels import cheb_bsr, ref as tref
+    from repro_torch.serve import (
+        AsyncGraphFilterEngine,
+        GraphFilterEngine,
+        SchedulerConfig,
+        lasso_panel_solver,
+    )
+    from repro_torch.serve.engine import host_copy, solve_answers
+    from repro_torch.solvers import LassoProblem, fista
+    from repro_torch.stream import StreamingFilter
+
+    t_phase = time.perf_counter()
+    filt = deploy_filt
+    n = filt.graph.n_vertices
+    state = filt.prepare_backend("bsr")
+    bell = state.bell
+    lmax = filt.lmax
+    pool = signal_pool(n, 64)
+    out = {"union_err": 0.0, "step_err": 0.0}
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    def pack(rows, b):
+        panel = np.stack(list(rows), axis=1)
+        return np.pad(panel, ((0, 0), (0, b - panel.shape[1])))
+
+    def memory_flat(run, batches):
+        run(batches[0])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        seen = []
+        for rows in batches:
+            run(rows)
+            torch.cuda.synchronize()
+            seen.append(torch.cuda.memory_allocated(dev))
+        return base, seen
+
+    def host_ms(prog, rows, b, answer, reps=5):
+        """Median host ms to pack, upload and copy back one panel."""
+        parts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            panel = pack(rows, b)
+            t1 = time.perf_counter()
+            dpanel = upload(panel, dev)
+            t2 = time.perf_counter()
+            res = prog(dpanel)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            answer(res)
+            t4 = time.perf_counter()
+            parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t4 - t3) * 1e3))
+        return [statistics.median(p[i] for p in parts) for i in range(3)]
+
+    def graph_launches(what, prog, want):
+        """The union and step kernel nodes of ``prog``'s recorded graph,
+        read from the graph, must equal what each replay adds to the
+        launch counters and ``want``."""
+        nodes = graph_kernel_nodes(prog.graph)
+        require(nodes == prog.launches_per_replay == want,
+                f"{what}: kernel nodes {nodes}, counted per replay "
+                f"{prog.launches_per_replay}, want {want}")
+
+    def panel_syncs(serve_panel):
+        """Median synchronising operations of three panels, after one."""
+        serve_panel()
+        torch.cuda.synchronize()
+        return statistics.median(synchronising_ops_once(serve_panel) for _ in range(3))
+
+    # ---- (1) programs per bucket --------------------------------------------
+    rng = np.random.default_rng(10)
+    lines, fused128 = [], None
+    for b in SERVE_BUCKETS:
+        rows = pool[rng.integers(0, len(pool), b)]
+        panel = upload(pack(rows, b), dev)
+        prog = filt.panel_program(backend="bsr", donate=True)
+        require(isinstance(prog, CudaGraphProgram), f"bucket {b}: no CUDA graph program")
+        first, u, s = count(lambda: prog(panel).clone())
+        require((u, s) == (2, 0), f"bucket {b}: first call launched {(u, s)} (want warm-up + replay)")
+        again, u, s = count(lambda: prog(panel).clone())
+        require((u, s) == (1, 0) and prog.launches_per_replay == (1, 0),
+                f"bucket {b}: a replay launched {(u, s)}, want (1, 0)")
+        graph_launches(f"bucket {b} program", prog, (1, 0))
+        eager = filt.apply(panel, backend="bsr")
+        fresh = upload(pack(pool[rng.integers(0, len(pool), b)], b), dev)
+        d_eager = max(err(first, eager), err(again, eager),
+                      err(count(lambda: prog(fresh).clone())[0], filt.apply(fresh, backend="bsr")))
+        require(d_eager <= REPLAY_TOL, f"bucket {b}: replay vs eager {d_eager:.3e}")
+        d_solo = max(err(first[:, :, i], filt.apply(panel[:, i], backend="bsr"))
+                     for i in range(b))
+        require(d_solo <= SOLO_TOL, f"bucket {b}: column vs solo bsr apply {d_solo:.3e}")
+        d_dense = err(first, filt.apply(panel, backend="dense"))
+        require(d_dense <= AGREE_TOL, f"bucket {b}: replay vs dense {d_dense:.3e}")
+        batches = [pool[rng.integers(0, len(pool), b)] for _ in range(5)]
+        base, seen = memory_flat(
+            lambda r: count(lambda: host_copy(prog(upload(pack(r, b), dev)))), batches)
+        require(seen == [base] * 5, f"bucket {b}: memory_allocated {base} -> {seen}")
+        require(prog.captures == 1, f"bucket {b}: {prog.captures} captures")
+        eager_ms = median_ms(lambda: filt.apply(panel, backend="bsr"))
+        replay_ms = median_ms(lambda: prog(panel))
+        pk, up, cb = host_ms(prog, rows, b, host_copy)
+        syncs = panel_syncs(lambda: host_copy(prog(upload(pack(rows, b), dev))))
+        out[f"apply_{b}"] = {"eager_ms": eager_ms, "replay_ms": replay_ms, "pack_ms": pk,
+                             "upload_ms": up, "copy_ms": cb, "syncs": syncs}
+        lines.append(f"b={b}: eager {eager_ms:.4f} ms replay {replay_ms:.4f} ms, host pack "
+                     f"{pk:.3f} upload {up:.3f} copy back {cb:.3f} ms, syncs {syncs}; "
+                     f"|replay-eager| {d_eager:.1e} |col-solo| {d_solo:.1e} |dense| {d_dense:.1e}, "
+                     f"captures {prog.captures}, memory flat at {base} B")
+        if b == SERVE_BUCKETS[-1]:
+            fused128 = (panel, first)
+        # The union kernel inside a recorded graph at this lane's operands
+        # (the permuted panel), against its plain version.
+        if b in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
+            fp = panel[state.perm].contiguous()
+            kprog = CudaGraphProgram(lambda f: cheb_bsr.cheb_union_cuda(
+                bell.blocks, bell.cols, f, coeffs=filt.coeffs, lmax=lmax), dev)
+            got = kprog(fp)
+            want = tref.cheb_union_ref(bell.blocks, bell.cols, fp, filt.coeffs, lmax)
+            e = (got - want).abs()
+            require(bool((e <= UNION_TOL + UNION_TOL * want.abs()).all()),
+                    f"cheb_union in a graph, F={b}: max err {float(e.max()):.3e}")
+            out["union_err"] = max(out["union_err"], float(e.max()))
+            say(f"[serve] cheb_union replayed from a CUDA graph at F={b} max|kernel-plain| "
+                f"{float(e.max()):.3e} (tol {UNION_TOL:g}) ok")
+    say("[serve] apply programs (bsr, N=%d, eta=%d, M=%d): " % (n, filt.eta, filt.order)
+        + "; ".join(lines))
+
+    # The stepwise route: M step launches per replay, against the fused program.
+    panel, fused_out = fused128
+    b = panel.shape[1]
+    sprog = filt.panel_program(backend="bsr", donate=True, fuse=False)
+    step_out, u, s = count(lambda: sprog(panel).clone())
+    require((u, s) == (0, 2 * filt.order), f"stepwise program first call launched {(u, s)}")
+    step_out, u, s = count(lambda: sprog(panel).clone())
+    require((u, s) == (0, filt.order) and sprog.captures == 1,
+            f"stepwise program replay launched {(u, s)}, want (0, {filt.order})")
+    graph_launches("stepwise program", sprog, (0, filt.order))
+    d_sf = err(step_out, fused_out)
+    require(d_sf <= SOLO_TOL, f"stepwise vs fused program {d_sf:.3e}")
+    t1 = panel[state.perm].contiguous()
+    t2 = fused_out[1][state.perm].contiguous()
+    kprog = CudaGraphProgram(lambda t: cheb_bsr.cheb_step_cuda(
+        bell.blocks, bell.cols, t, t2, alpha=lmax / 2.0), dev)
+    got = kprog(t1)
+    want = tref.cheb_step_ref(bell.blocks, bell.cols, t1, t2, lmax / 2.0)
+    e = (got - want).abs()
+    require(bool((e <= F32_STEP_TOL + F32_STEP_TOL * want.abs()).all()),
+            f"cheb_step in a graph: max err {float(e.max()):.3e}")
+    out["step_err"] = float(e.max())
+    step_eager = median_ms(lambda: filt.apply(panel, backend="bsr", fuse=False))
+    step_replay = median_ms(lambda: sprog(panel))
+    out["stepwise_128"] = {"eager_ms": step_eager, "replay_ms": step_replay}
+    say(f"[serve] stepwise program b={b}: launches step {filt.order} per replay, "
+        f"|stepwise-fused| {d_sf:.2e} (tol {SOLO_TOL:g}); eager {step_eager:.4f} ms replay "
+        f"{step_replay:.4f} ms; cheb_step replayed from a CUDA graph max|kernel-plain| "
+        f"{float(e.max()):.3e} (tol {F32_STEP_TOL:g}) ok")
+
+    # FISTA-8 solve programs, built and first run by the async engine's
+    # solve lane (one full panel per bucket).
+    solver = lasso_panel_solver(filt, mu=1.0, n_iters=SERVE_ITERS)
+    eng = AsyncGraphFilterEngine(filt, backend="bsr", solver=solver, device=dev,
+                                 config=SchedulerConfig(max_panel=SERVE_BUCKETS[-1],
+                                                        min_bucket=SERVE_BUCKETS[0]))
+    lines = []
+    for b in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
+        rows = pool[rng.integers(0, len(pool), b)]
+        panel = upload(pack(rows, b), dev)
+
+        def first_panel(rows=rows):
+            tickets = [eng.submit_solve(r, now=0.0) for r in rows]
+            eng.drain(now=0.0)
+            return tickets
+
+        tickets, u, s = count(first_panel)
+        want_l = (2 * (SERVE_ITERS + 1), 0)
+        require((u, s) == want_l, f"solve bucket {b}: first panel launched {(u, s)}")
+        sp = eng.cache.programs()[("solve", "bsr", n, b)]
+        prog = sp.program
+        require(isinstance(prog, CudaGraphProgram) and prog.captures == 1,
+                f"solve bucket {b}: not recorded once")
+        x0 = torch.stack([tk.result.x for tk in tickets], dim=1)
+        (x1, a1, h1), u, s = count(lambda: tuple(t.clone() for t in prog(panel)))
+        require((u, s) == (SERVE_ITERS + 1, 0) and prog.captures == 1,
+                f"solve bucket {b}: replay launched {(u, s)}")
+        graph_launches(f"solve bucket {b} program", prog, (SERVE_ITERS + 1, 0))
+        xe, ae, he = prog.fn(panel)
+        d_eager = max(err(x0, xe.cpu()), err(x1, xe), err(a1, ae))
+        require(d_eager <= SOLO_TOL, f"solve bucket {b}: replay vs eager {d_eager:.3e}")
+        solo = fista(LassoProblem(filt=filt, y=panel, mu=1.0), n_iters=SERVE_ITERS, backend="bsr")
+        d_solo = err(x1, solo.x)
+        require(d_solo <= SERVE_SOLVE_TOL, f"solve bucket {b}: vs fista {d_solo:.3e}")
+
+        def answer(res, k=b):
+            return solve_answers(res, k)
+
+        batches = [pool[rng.integers(0, len(pool), b)] for _ in range(5)]
+        base, seen = memory_flat(
+            lambda r: count(lambda: answer(sp(upload(pack(r, b), dev)))), batches)
+        require(seen == [base] * 5, f"solve bucket {b}: memory_allocated {base} -> {seen}")
+        eager_ms = median_ms(lambda: prog.fn(panel), reps=5, warmup=1)
+        replay_ms = median_ms(lambda: prog(panel), reps=5, warmup=1)
+        pk, up, cb = host_ms(sp, rows, b, answer, reps=3)
+        syncs = panel_syncs(lambda: answer(sp(upload(pack(rows, b), dev))))
+        out[f"solve_{b}"] = {"eager_ms": eager_ms, "replay_ms": replay_ms, "pack_ms": pk,
+                             "upload_ms": up, "copy_ms": cb, "syncs": syncs}
+        lines.append(f"b={b}: eager {eager_ms:.3f} ms replay {replay_ms:.3f} ms, host pack "
+                     f"{pk:.3f} upload {up:.3f} copy back {cb:.3f} ms, syncs {syncs}; "
+                     f"|replay-eager| {d_eager:.1e} |x-fista| {d_solo:.1e}, union launches "
+                     f"{SERVE_ITERS + 1} per replay, memory flat at {base} B")
+    say(f"[serve] FISTA-{SERVE_ITERS} solve programs: " + "; ".join(lines))
+
+    out["programs_s"] = time.perf_counter() - t_phase
+
+    # ---- (2) the sync engine on each lane -------------------------------------
+    t_sync = time.perf_counter()
+    reqs = np.random.default_rng(11).normal(size=(SERVE_REQUESTS, n)).astype(np.float32)
+    width = SERVE_BUCKETS[-1]
+
+    def feed(submit, flush, items):
+        got = []
+        for item in items:
+            res = submit(*item)
+            if res:
+                got.extend(res)
+        tail = flush()
+        return got + (tail or [])
+
+    sync = GraphFilterEngine(filt, backend="bsr", panel_width=width, device=dev,
+                             solver=lasso_panel_solver(filt, mu=1.0, n_iters=SERVE_ITERS))
+    panels = -(-SERVE_REQUESTS // width)
+    applies, u, s = count(lambda: feed(sync.submit, sync.flush, [(r,) for r in reqs]))
+    require((u, s) == (panels, 0), f"sync applies launched {(u, s)}, want ({panels}, 0)")
+    d_apply = max(err(a, filt.apply(torch.as_tensor(r).to(dev), backend="bsr").cpu())
+                  for a, r in zip(applies, reqs))
+    require(len(applies) == SERVE_REQUESTS and d_apply <= SOLO_TOL,
+            f"sync applies vs solo {d_apply:.3e}")
+    solves, u, s = count(lambda: feed(sync.submit_solve, sync.flush_solves, [(r,) for r in reqs]))
+    require((u, s) == (panels * (SERVE_ITERS + 1), 0), f"sync solves launched {(u, s)}")
+    d_solve = 0.0
+    for res, r in zip(solves, reqs):
+        solo = fista(LassoProblem(filt=filt, y=torch.as_tensor(r).to(dev), mu=1.0),
+                     n_iters=SERVE_ITERS, backend="bsr")
+        d_solve = max(d_solve, err(res.x, solo.x.cpu()))
+    require(len(solves) == SERVE_REQUESTS and d_solve <= SERVE_SOLVE_TOL,
+            f"sync solves vs solo fista {d_solve:.3e}")
+    # Frames over 16 streams; each stream's frames come in equal pairs, so
+    # every second frame of a stream is served from its cache.
+    frames = [(i % SERVE_FRAME_STREAMS,
+               pool[(i % SERVE_FRAME_STREAMS + (i // SERVE_FRAME_STREAMS) // 2) % len(pool)])
+              for i in range(SERVE_REQUESTS)]
+    results, u, s = count(lambda: feed(sync.submit_frame, sync.flush_frames, frames))
+    filtered = sum(r.mode != "cached" for r in results)
+    require((u, s) == (filtered, 0) and 0 < filtered < SERVE_REQUESTS,
+            f"sync frames launched {(u, s)} for {filtered} filtered frames")
+    solo_lanes = {}
+    d_frame = 0.0
+    for (sid, fr), res in zip(frames, results):
+        if sid not in solo_lanes:
+            solo_lanes[sid] = StreamingFilter(filt, backend="bsr", device=dev)
+        want = solo_lanes[sid].push(fr)
+        require(want.mode == res.mode, f"frame mode {res.mode}, standalone {want.mode}")
+        d_frame = max(d_frame, err(res.out, want.out))
+    require(d_frame <= SOLO_TOL, f"sync frames vs standalone stream {d_frame:.3e}")
+    say(f"[serve] sync engine panel_width={width}, {SERVE_REQUESTS} requests per lane: applies "
+        f"max|engine-solo bsr| {d_apply:.2e}, union launches {panels} (1 per panel); FISTA-"
+        f"{SERVE_ITERS} solves max|x-solo fista| {d_solve:.2e} (tol {SERVE_SOLVE_TOL:g}), union "
+        f"launches {panels * (SERVE_ITERS + 1)} (its + 1 per panel); frames over "
+        f"{SERVE_FRAME_STREAMS} streams max|engine-standalone| {d_frame:.2e}, {filtered} "
+        f"filtered (1 launch each), {SERVE_REQUESTS - filtered} cached (0)")
+
+    out["sync_s"] = time.perf_counter() - t_sync
+
+    # ---- (3) the async engine on the seeded trace -----------------------------
+    t_async = time.perf_counter()
+    config = SchedulerConfig(max_panel=width, min_bucket=SERVE_BUCKETS[0],
+                             latency_budget_s=SERVE_BUDGET_S)
+
+    def make_async():
+        return AsyncGraphFilterEngine(filt, backend="bsr", config=config, device=dev,
+                                      solver=lasso_panel_solver(filt, mu=1.0, n_iters=SERVE_ITERS))
+
+    def lane_launches(rep):
+        return rep["applies"] + rep["solves"] * (SERVE_ITERS + 1) + rep["frames_filtered"]
+
+    reports = {}
+    for kind, burst in (("paced", False), ("burst", True)):
+        trace = make_trace(SERVE_STREAMS, SERVE_SECONDS, SERVE_RATE, seed=0, burst=burst)
+        eng = make_async()
+        warm, u, s = count(lambda: drive_async(eng, trace, pool, SERVE_FRAME_STREAMS))
+        # Each program's graph holds its lane's launches per panel, and a
+        # new program's first call adds its eager warm-up run.
+        for key, prog in eng.cache.programs().items():
+            want_l = (1, 0) if key[0] == "apply" else (SERVE_ITERS + 1, 0)
+            graph_launches(f"{kind} {key}", getattr(prog, "program", prog), want_l)
+        warm_ups = sum(1 if key[0] == "apply" else SERVE_ITERS + 1 for key in eng.cache.programs())
+        require((u, s) == (lane_launches(warm) + warm_ups, 0),
+                f"{kind} warm replay launched {(u, s)}, want ({lane_launches(warm) + warm_ups}, 0)")
+        rep, u, s = count(lambda: drive_async(eng, trace, pool, SERVE_FRAME_STREAMS))
+        require(rep["served"] == rep["requests"] and rep["rejected"] == 0,
+                f"{kind}: served {rep['served']} of {rep['requests']}, rejected {rep['rejected']}")
+        require(rep["recompiles"] == 0 and rep["captures"] == 0,
+                f"{kind} measured replay: {rep['recompiles']} recompiles, "
+                f"{rep['captures']} captures")
+        require((u, s) == (lane_launches(rep), 0),
+                f"{kind} measured replay launched {(u, s)}, want ({lane_launches(rep)}, 0)")
+        box = {}
+
+        def profiled():
+            t0 = time.perf_counter()
+            box["rep"] = drive_async(eng, trace, pool, SERVE_FRAME_STREAMS)
+            torch.cuda.synchronize()
+            box["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+        (busy_ms, traced), pu, _ = count(lambda: kernel_profile_once(profiled))
+        rep["idle"] = max(0.0, 1 - busy_ms / box["wall_ms"])
+        rep["kernel_ms"], rep["wall_ms"] = busy_ms, box["wall_ms"]
+        rep["warm_recompiles"] = warm["recompiles"]
+        rep["union"] = u
+        reports[kind] = rep
+        capacity = f"capacity {rep['served'] / rep['busy_s']:.0f} req/s (busy {rep['busy_s']:.3f} s)"
+        if burst:
+            # The sync engine at the same width on the same burst, warm.
+            sync_eng = GraphFilterEngine(
+                filt, backend="bsr", panel_width=width, device=dev,
+                solver=lasso_panel_solver(filt, mu=1.0, n_iters=SERVE_ITERS))
+            count(lambda: drive_sync(sync_eng, trace, pool, SERVE_FRAME_STREAMS))
+            srep, _, _ = count(lambda: drive_sync(sync_eng, trace, pool, SERVE_FRAME_STREAMS))
+            rep["sync"] = srep
+            capacity += (f", sync engine width {width} {srep['served'] / srep['busy_s']:.0f} req/s "
+                         f"(busy {srep['busy_s']:.3f} s, latency {pct_ms(srep['lat'])})")
+        say(f"[serve] async {kind} trace ({rep['requests']} requests, {SERVE_STREAMS} streams, "
+            f"seed 0{'' if burst else f', {SERVE_RATE:g}/s over {SERVE_SECONDS:g} s'}): served "
+            f"{rep['served']}, rejected {rep['rejected']}; warm replay recompiles "
+            f"{warm['recompiles']} (= captures {warm['captures']}), measured replay recompiles "
+            f"{rep['recompiles']} captures {rep['captures']}; panels apply {rep['applies']} "
+            f"solve {rep['solves']}, frames {rep['frames_served']} ({rep['frames_filtered']} "
+            f"filtered); union launches {u} = sum over panels, each program's graph holding its "
+            f"lane's kernel nodes (a profiled replay traced {traced[0]} of its {pu}); latency apply "
+            f"{pct_ms(rep['lat']['apply'])}, solve {pct_ms(rep['lat']['solve'])}, frame "
+            f"{pct_ms(rep['lat']['frame'])}; {capacity}; pad_waste {rep['pad_waste']:.3f}, streams_evicted "
+            f"{rep['streams_evicted']}; device idle share over a replay {rep['idle']:.0%} "
+            f"(kernels {busy_ms:.1f} of {box['wall_ms']:.1f} ms)")
+    out["reports"] = reports
+    out["async_s"] = time.perf_counter() - t_async
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[serve] phase 10 took {out['seconds']:.1f} s: programs {out['programs_s']:.1f}, sync "
+        f"engine {out['sync_s']:.1f}, async engine {out['async_s']:.1f}")
+    return out
+
+
 def main() -> int:
+    # Keep the profiler's CUPTI attached between sessions: with the default
+    # teardown after each one, sessions in a short test process on the
+    # H100 traced no device record at all every second or third time.
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -1663,6 +2286,18 @@ def main() -> int:
         f"cheb_step {st_count.step}")
     main_union += st_count.union
     main_step += st_count.step
+
+    # ---- 10. the serving layer, every engine and program run counted -------------
+    sv_count = LaunchCounter(cheb_bsr)
+    sv = serve_phase(dev, sv_count, filt)
+    union_err = max(union_err, sv["union_err"])
+    step_err = max(step_err, sv["step_err"])
+    require(sv_count.union > 0 and sv_count.step > 0,
+            "a kernel of the serving path was never launched")
+    say(f"[serve] launches in the counted engine and program runs: cheb_union "
+        f"{sv_count.union}, cheb_step {sv_count.step}")
+    main_union += sv_count.union
+    main_step += sv_count.step
     say(smi)
 
     kernels = [
@@ -1681,6 +2316,7 @@ def main() -> int:
                 mst["inner_plain_ms"], "multishift_inner_bound_ms": mst["inner_bound_ms"],
             "multishift_inner_bound_by": mst["inner_bound_by"],
             "stream_launches": st_count.union,
+            "serve_launches": sv_count.union,
         },
         {
             "name": "cheb_step", "route": "cuda",
@@ -1694,6 +2330,7 @@ def main() -> int:
             "bf16_device_ms": device_ms.get("cheb_step_strip_kernel bf16"),
             "multishift_launches": ms_count.step,
             "multishift_launches_per_apply": ms_orders[1] * (ms_orders[0] + 1),
+            "serve_launches": sv_count.step,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

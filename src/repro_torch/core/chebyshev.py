@@ -32,6 +32,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import cached_upload
+
 __all__ = [
     "cheb_coefficients",
     "cheb_eval",
@@ -148,9 +150,13 @@ def _cheb_basis(order: int, x: np.ndarray, lmax: float) -> np.ndarray:
 
 def _cast_coeffs(coeffs, like: torch.Tensor) -> torch.Tensor:
     """Coefficients as a tensor of ``like``'s dtype and device (explicit
-    cast: float64 numpy must not promote a float32 recurrence)."""
+    cast: float64 numpy must not promote a float32 recurrence). Host
+    coefficients go to a CUDA device once per distinct array
+    (``cached_upload``), so an apply makes no host-to-device copy."""
     if isinstance(coeffs, torch.Tensor):
         return coeffs.to(device=like.device, dtype=like.dtype)
+    if like.device.type == "cuda":
+        return cached_upload(np.asarray(coeffs), like.device, like.dtype)
     return torch.as_tensor(np.asarray(coeffs), device=like.device).to(like.dtype)
 
 

@@ -3,7 +3,13 @@ several backends (mirrors ``repro/filters``). Importing this package
 registers the ``dense``, ``bsr``, ``halo``, ``allgather``, ``grid`` and
 ``matvec`` backends."""
 
-from repro_torch.filters.api import GraphFilter, bucket_size, gather_reach, shift_matvec_counts
+from repro_torch.filters.api import (
+    CudaGraphProgram,
+    GraphFilter,
+    bucket_size,
+    gather_reach,
+    shift_matvec_counts,
+)
 from repro_torch.filters.registry import (
     BackendCapabilities,
     FilterBackend,
@@ -20,6 +26,7 @@ from repro_torch.filters import backends as _backends  # noqa: F401  (registers)
 
 __all__ = [
     "BackendCapabilities",
+    "CudaGraphProgram",
     "FilterBackend",
     "GraphFilter",
     "available_backends",

@@ -18,7 +18,9 @@ of a sensor Laplacian and a temporal Laplacian)::
 Multi-shift filters run on the backends that declare ``multi_shift``
 (``dense``, ``bsr``, ``halo``). Signals are tensors; a non-tensor signal
 is placed on the bound graph's device. ``apply_sparse`` is the streaming
-layer's delta path. Not ported yet: ``panel_program`` (serve slice).
+layer's delta path, ``panel_program`` the serving layer's fixed-shape
+program (one recorded CUDA graph per panel shape on the card, see
+:class:`CudaGraphProgram`).
 """
 
 from __future__ import annotations
@@ -32,10 +34,17 @@ import torch.nn.functional as F
 
 from repro_torch.core import chebyshev
 from repro_torch.core.graph import SensorGraph
-from repro_torch.device import upload
+from repro_torch.device import pinned_uploads, resolve_device, upload
 from repro_torch.filters import registry
+from repro_torch.kernels import cheb_bsr
 
-__all__ = ["GraphFilter", "bucket_size", "gather_reach", "shift_matvec_counts"]
+__all__ = [
+    "CudaGraphProgram",
+    "GraphFilter",
+    "bucket_size",
+    "gather_reach",
+    "shift_matvec_counts",
+]
 
 Multiplier = Callable[[np.ndarray], np.ndarray]
 
@@ -91,6 +100,124 @@ def shift_matvec_counts(orders: Sequence[int]) -> tuple[int, ...]:
         counts.append(int(m) * prefix)
         prefix *= int(m) + 1
     return tuple(counts)
+
+
+def _map_tensors(fn, out):
+    """``fn`` over a tensor or each tensor of a tuple."""
+    if isinstance(out, tuple):
+        return tuple(fn(t) for t in out)
+    return fn(out)
+
+
+class CudaGraphProgram:
+    """A fixed-shape device program: ``fn`` recorded once as a
+    ``torch.cuda.CUDAGraph`` and replayed on every call.
+
+    This is the torch meaning of the reference's compiled panel program
+    (one ``jax.jit`` per panel bucket). The program owns a static input
+    of the shape its first call gives it and refuses any other shape, so
+    one program holds one graph and one miss of the serving cache is one
+    capture.
+
+    * First call: ``fn`` runs once eagerly on a side stream (the warm-up:
+      it fills the once-per-content coefficient uploads, ``cached_upload``,
+      and the kernels' tiling choice, so nothing inside the recorded
+      region copies from the host), then ``fn`` is recorded, then replayed.
+    * Every call copies the caller's panel (a tensor on the program's
+      device) into the static input and replays the graph.
+    * ``donate=True``: the caller gives up the returned tensor(s), which
+      are the program's static output, overwritten by the next call.
+      ``donate=False`` returns clones, storage of their own.
+
+    Launch counts: the kernel wrappers count their launches in Python
+    (``kernels.cheb_bsr.launch_counts``) and a replay runs no Python. The
+    capture records how far the counts moved while ``fn`` was recorded
+    (restoring them, since nothing ran), and each replay adds that amount
+    (``add_launches``), so the counts stay exact launch counts.
+
+    Memory: the graph reads by address what ``fn`` read during the
+    capture. The program keeps the static input and output, and every
+    once-per-content upload the capture touched (``pinned_uploads``), so
+    no cache eviction can hand memory the graph reads back to the
+    allocator. Backend state lives on the filter, which ``fn`` holds.
+
+    A capture that fails raises, with the graph discarded; nothing falls
+    back to an eager call. The union kernel's cooperative launch
+    (``cudaLaunchCooperativeKernel``, for its ``grid.sync()``) is
+    recorded as a cooperative kernel node.
+
+    Attributes
+    ----------
+    captures, replays : int
+        Graphs recorded (0 or 1) and replays run.
+    graph : torch.cuda.CUDAGraph or None
+        The recorded graph. It keeps its ``cudaGraph_t``
+        (``keep_graph=True``), so ``graph.raw_cuda_graph()`` gives the
+        nodes a replay launches, to be read with the driver's graph API.
+    launches_per_replay : tuple of int
+        Kernel launches one replay makes, ordered as
+        ``kernels.cheb_bsr.launch_counts`` (union, step).
+    """
+
+    def __init__(self, fn: Callable[[torch.Tensor], Any], device, *, donate: bool = False):
+        self.fn = fn
+        if torch.device(device).type != "cuda":
+            raise ValueError(f"a CUDA graph program needs a CUDA device, got {device}")
+        self.device = resolve_device(device)
+        self.donate = bool(donate)
+        self.captures = 0
+        self.replays = 0
+        self.launches_per_replay = (0,) * len(cheb_bsr.launch_counts())
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._static_in: torch.Tensor | None = None
+        self._static_out: Any = None
+        self._pinned: tuple[torch.Tensor, ...] = ()
+
+    def _record(self, panel: torch.Tensor) -> None:
+        static_in = torch.empty_like(panel, memory_format=torch.contiguous_format)
+        static_in.copy_(panel)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.fn(static_in)  # warm-up: real launches, counted as such
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = cheb_bsr.launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with pinned_uploads() as held, torch.cuda.graph(graph):
+                static_out = self.fn(static_in)
+            graph.instantiate()
+        finally:
+            moved = tuple(a - b for a, b in zip(cheb_bsr.launch_counts(), before))
+            cheb_bsr.add_launches(tuple(-m for m in moved))  # recording launches nothing
+        self._graph, self._static_in, self._static_out = graph, static_in, static_out
+        self._pinned = tuple(held.values())
+        self.launches_per_replay = moved
+        self.captures += 1
+
+    @property
+    def graph(self) -> torch.cuda.CUDAGraph | None:
+        return self._graph
+
+    def __call__(self, panel: torch.Tensor):
+        if not isinstance(panel, torch.Tensor) or panel.device != self.device:
+            where = panel.device if isinstance(panel, torch.Tensor) else type(panel).__name__
+            raise ValueError(f"the program takes tensors on {self.device}, got {where}")
+        if self._graph is None:
+            self._record(panel)
+        elif panel.shape != self._static_in.shape or panel.dtype != self._static_in.dtype:
+            raise ValueError(
+                f"the program was recorded for {tuple(self._static_in.shape)} "
+                f"{self._static_in.dtype}, got {tuple(panel.shape)} {panel.dtype}"
+            )
+        else:
+            self._static_in.copy_(panel)
+        self._graph.replay()
+        self.replays += 1
+        cheb_bsr.add_launches(self.launches_per_replay)
+        if self.donate:
+            return self._static_out
+        return _map_tensors(torch.clone, self._static_out)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -377,6 +504,38 @@ class GraphFilter:
             f = F.pad(f, (0, b - k))
         out = self.apply(f, backend=backend, **opts)
         return out[:, :, :k]
+
+    def panel_program(
+        self, *, backend: str = "dense", coeffs=None, donate: bool = False, **opts
+    ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Build a reusable fixed-shape apply program for a panel lane.
+
+        Returns ``panel (N, F) -> (eta, N, F)`` with the backend state
+        prepared eagerly. On a backend declaring the ``traceable``
+        capability and a filter whose graph is on a CUDA device, the
+        program is a :class:`CudaGraphProgram`: its first call warms up,
+        records the whole apply as one CUDA graph and replays it; every
+        later call of the same shape is one replay (the reference wraps
+        the apply in one ``jax.jit``). Otherwise (the CPU, or a backend
+        that stages host transfers) it is the plain prepared closure.
+
+        ``donate=True``: the caller gives up the returned tensor, which
+        the next call overwrites (the reference donates the panel buffer
+        to XLA); the serving engine copies each answer to the host at
+        once. Callers that keep the output must leave the default, which
+        returns storage of its own.
+        """
+        be = self._backend(backend)
+        state = self._backend_state(be, opts)
+        c = coeffs
+
+        def run(panel: torch.Tensor) -> torch.Tensor:
+            return be.apply(self, state, panel, coeffs=c, **opts)
+
+        if (be.capabilities.traceable and self.graph is not None
+                and self.graph.device.type == "cuda"):
+            return CudaGraphProgram(run, self.graph.device, donate=donate)
+        return run
 
     def apply_sparse(self, delta, support, *, backend: str = "dense", **opts) -> torch.Tensor:
         """Apply ``Phi~`` to a signal supported on a sparse vertex set.

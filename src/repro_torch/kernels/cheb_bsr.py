@@ -9,7 +9,9 @@ Each wrapper takes its path from the device of the tensors it is given:
 CPU tensors go to the plain versions in ``kernels/ref.py``; CUDA tensors
 go to the CUDA kernel, and any failure to build or launch raises. Each
 wrapper counts its CUDA launches in a plain integer attribute
-``launches`` (CPU calls do not count); reset it by assigning 0.
+``launches`` (CPU calls do not count); ``launch_counts`` reads them all,
+``add_launches`` adds to them (what a replayed CUDA graph, which runs no
+Python, uses) and ``reset_launch_counts`` sets them to 0.
 
 Block columns are not range-checked here, which would cost a device
 synchronisation per launch: ``BlockEll`` checks them when it is built, and
@@ -19,16 +21,22 @@ that name one come out NaN).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from repro_torch.device import cached_upload
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.autotune import UNION_BLOCKS, device_sm_count, select_tiling
 
-__all__ = ["cheb_step_cuda", "cheb_union_cuda", "device_coeffs", "reset_launch_counts"]
+__all__ = [
+    "add_launches",
+    "cheb_step_cuda",
+    "cheb_union_cuda",
+    "device_coeffs",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -136,19 +144,13 @@ def cheb_step_cuda(
 cheb_step_cuda.launches = 0
 
 
-@functools.lru_cache(maxsize=16)
-def _device_coeffs(raw: bytes, shape: tuple, device: torch.device) -> torch.Tensor:
-    host = torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(shape)
-    return host.to(device)
-
-
 def device_coeffs(coeffs, device: torch.device) -> torch.Tensor:
     """A float64 host coefficient array (any shape) as a contiguous float32
     tensor on ``device``, uploaded once per distinct array rather than once
-    per apply (a host-to-device copy synchronises the stream). A joint
-    tensor goes up whole; its slices are device views."""
-    c = np.asarray(coeffs, dtype=np.float64).astype(np.float32)
-    return _device_coeffs(c.tobytes(), c.shape, torch.device(device))
+    per apply (a host-to-device copy synchronises the stream, and cannot
+    run inside a recorded CUDA graph). A joint tensor goes up whole; its
+    slices are device views."""
+    return cached_upload(np.asarray(coeffs, dtype=np.float64), device, torch.float32)
 
 
 def cheb_union_cuda(
@@ -244,7 +246,21 @@ def cheb_union_cuda(
 cheb_union_cuda.launches = 0
 
 
+_COUNTED = (cheb_union_cuda, cheb_step_cuda)
+
+
+def launch_counts() -> tuple[int, ...]:
+    """Every wrapper's launch count, union kernel first, then step."""
+    return tuple(w.launches for w in _COUNTED)
+
+
+def add_launches(delta) -> None:
+    """Add ``delta`` (ordered as ``launch_counts``) to the counts."""
+    for w, d in zip(_COUNTED, delta, strict=True):
+        w.launches += d
+
+
 def reset_launch_counts() -> None:
-    """Set both wrappers' launch counts to 0."""
-    cheb_step_cuda.launches = 0
-    cheb_union_cuda.launches = 0
+    """Set every wrapper's launch count to 0."""
+    for w in _COUNTED:
+        w.launches = 0

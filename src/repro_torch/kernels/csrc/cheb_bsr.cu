@@ -440,6 +440,8 @@ cudaError_t launch_union(const void* blocks, const void* cols, const void* f,
   float* out_p = static_cast<float*>(out);
   void* args[] = {&blocks_p, &cols_p, &f_p, &coeffs_p, &ta_p, &tb_p, &out_p,
                   &n_rows, &k_max, &F, &eta, &order, &f_tile, &inv_alpha, &two_inv_alpha};
+  // Stream capture records this launch as a cooperative kernel node, so
+  // a CUDA graph of an apply replays it with grid.sync() intact.
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cheb_union_kernel<B, KT>),
                                     dim3(static_cast<unsigned>(want)), dim3(UNION_THREADS),
                                     args, 0, stream);

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import chebyshev
 from repro_torch.kernels.cheb_bsr import cheb_step_cuda, cheb_union_cuda
 from repro_torch.kernels.ref import BlockEll, bsr_from_dense
 
@@ -87,9 +88,10 @@ def cheb_apply_bsr(
     Returns: (eta, N, F).
     """
     if isinstance(coeffs, torch.Tensor):
-        coeffs = torch.atleast_2d(coeffs).to(device=f.device, dtype=f.dtype)
+        coeffs = torch.atleast_2d(coeffs)
     else:
-        coeffs = torch.as_tensor(np.atleast_2d(np.asarray(coeffs)), device=f.device).to(f.dtype)
+        coeffs = np.atleast_2d(np.asarray(coeffs))
+    coeffs = chebyshev._cast_coeffs(coeffs, f)
     alpha = float(lmax) / 2.0
 
     def step(t1, t2, first=False):

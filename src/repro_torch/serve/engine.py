@@ -1,0 +1,345 @@
+"""Batched serving engine for graph filters.
+
+Mirrors ``repro/serve/engine.py`` without ``ServeEngine``,
+``make_decode_step`` and ``make_prefill``, which serve the language
+models of ``repro.models`` (not ported yet).
+
+``GraphFilterEngine`` — graph-signal filtering as a service: incoming
+(N,)-signal requests are packed into an (N, F) panel and answered by ONE
+``GraphFilter.apply`` — the union recurrence is F-blind, so batching
+amortizes the whole Krylov sequence (and, on the ``bsr`` backend, feeds
+the fused union kernel one wide panel). This is the serving face of the
+paper's "one recurrence, eta outputs" economics.
+
+The same engine serves *iterative solves* (solve-as-a-service): requests
+queue on a second lane and one FISTA/ISTA run over the packed (N, F)
+panel answers F clients at once (configure with ``solver=``, e.g.
+:func:`lasso_panel_solver`). A third lane serves *streams*
+(``submit_frame`` / ``flush_frames``): frames keyed by stream id are
+answered by per-stream :class:`repro_torch.stream.StreamingFilter` state.
+
+Device and answers. The engine runs on ``device=`` (default ``cuda``,
+raising without it), which must be the filter's graph's device. Panels
+are packed on the host and uploaded once; apply answers are (eta, N) CPU
+tensors and solve answers ``SolveResult`` s with CPU ``x`` and ``aux``
+columns, all from ONE device-to-host copy per panel into storage of the
+panel's own, so no later panel can overwrite an answer. Frame answers are
+the ``FrameResult`` s of ``StreamingFilter.push``, whose ``out`` stays on
+the device. This engine stays eager, as the reference's does: every
+panel is a plain ``filt.apply`` (the async engine holds the programs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import upload
+from repro_torch.filters import GraphFilter
+from repro_torch.solvers import LassoProblem, SolveResult, solve as solve_problem
+from repro_torch.stream import FrameResult, StreamingFilter
+from repro_torch.stream.api import stream_device
+
+__all__ = ["GraphFilterEngine", "lasso_panel_solver"]
+
+
+_UNSET = object()
+
+
+def _bind_solver_backend(solver, backend: str):
+    """Bind a backend-less panel solver to the engine's backend.
+
+    A :func:`lasso_panel_solver` built without an explicit ``backend=``
+    declares ``backend=None`` ("inherit the engine's"), so the apply and
+    solve lanes cannot silently disagree. Binding returns a *copy* via
+    ``dataclasses.replace`` — mutating in place would leak this engine's
+    backend into a solver object shared with another engine.
+
+    Solvers with an explicit backend — or arbitrary callables that never
+    declare one — pass through untouched. A non-dataclass solver that
+    *does* declare ``backend=None`` is refused loudly, since
+    ``dataclasses.replace`` cannot copy it.
+    """
+    if solver is None:
+        return None
+    declared = getattr(solver, "backend", _UNSET)
+    if declared is not None:
+        # Explicit backend, or no backend contract at all: use as-is.
+        return solver
+    if not dataclasses.is_dataclass(solver):
+        raise TypeError(
+            f"solver {type(solver).__name__!r} declares backend=None "
+            "(meaning 'inherit the engine's backend') but is not a "
+            "dataclass, so the engine cannot bind a copy with "
+            "dataclasses.replace(). Construct it with an explicit "
+            "backend= instead."
+        )
+    return dataclasses.replace(solver, backend=backend)
+
+
+def host_copy(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The tensors in one new host buffer, through one device-to-host copy
+    (several tensors are packed on the device first)."""
+    if len(tensors) == 1:
+        t = tensors[0]
+        return (t.cpu() if t.device.type != "cpu" else t.clone(),)
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+    out, start = [], 0
+    for t in tensors:
+        out.append(flat[start:start + t.numel()].view(t.shape))
+        start += t.numel()
+    return tuple(out)
+
+
+def solve_answers(res: SolveResult, k: int) -> list[SolveResult]:
+    """Split a panel ``SolveResult`` into its first ``k`` columns on the
+    host: ``x``, a tensor ``aux`` and a device ``history`` come down in one
+    copy; the history becomes the float64 numpy trace."""
+    parts = [res.x]
+    has_aux = isinstance(res.aux, torch.Tensor)
+    if has_aux:
+        parts.append(res.aux)
+    if isinstance(res.history, torch.Tensor):
+        parts.append(res.history)
+    host = host_copy(*parts)
+    x = host[0]
+    aux = host[1] if has_aux else None
+    history = res.history
+    if isinstance(history, torch.Tensor):
+        history = host[-1].numpy().astype(np.float64)
+    return [
+        dataclasses.replace(res, x=x[:, i], aux=aux[..., i] if has_aux else res.aux,
+                            history=history)
+        for i in range(k)
+    ]
+
+
+@dataclasses.dataclass
+class GraphFilterEngine:
+    """Micro-batching front end for a :class:`GraphFilter`.
+
+    Requests (one (N,) signal each) accumulate until ``panel_width`` are
+    pending, then one backend apply answers the whole panel. A fixed
+    panel width keeps the kernels on one F (the partial last panel is
+    zero-padded; zero columns are exact pass-throughs).
+
+    Parameters
+    ----------
+    filt : GraphFilter
+        The filter to serve (graph already bound for graph-bound backends).
+    backend : str
+        ``GraphFilter`` backend to answer panels with.
+    panel_width : int
+        F dimension of the served panel; requests per apply.
+    opts : dict
+        Extra backend options forwarded to every apply.
+    solver : callable, optional
+        ``panel -> SolveResult`` for the solve lane
+        (:func:`lasso_panel_solver`).
+    stream_opts : dict
+        Keyword options for the per-stream
+        :class:`repro_torch.stream.StreamingFilter` lanes
+        (``max_delta_frac``, ``refresh_every``, ``n_parts``, ...).
+    device : str or torch.device, optional
+        Default ``cuda`` (raises without it); must be the filter's
+        graph's device. The stream lanes run on it too.
+    """
+
+    filt: GraphFilter
+    backend: str = "bsr"
+    panel_width: int = 8
+    opts: dict = dataclasses.field(default_factory=dict)
+    solver: Callable[[torch.Tensor], SolveResult] | None = None
+    stream_opts: dict = dataclasses.field(default_factory=dict)
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = stream_device(self.filt, self.device)
+        self._pending: list[np.ndarray] = []
+        self._pending_solves: list[np.ndarray] = []
+        self._pending_frames: list[tuple[Any, np.ndarray]] = []
+        self._streams: dict[Any, StreamingFilter] = {}
+        self.served = 0
+        self.applies = 0
+        self.solved = 0
+        self.solves = 0
+        self.frames_served = 0
+        self.stream_words = 0
+        self.stream_latency_s = 0.0
+        self.solver = _bind_solver_backend(self.solver, self.backend)
+
+    def submit(self, signal) -> list[torch.Tensor] | None:
+        """Queue one (N,) signal; returns the panel's (eta, N) results —
+        one CPU tensor per queued request, submission order — when it
+        fills."""
+        self._pending.append(np.asarray(signal))
+        if len(self._pending) >= self.panel_width:
+            return self.flush()
+        return None
+
+    def flush(self) -> list[torch.Tensor] | None:
+        """Answer all pending requests now (pads a partial panel)."""
+        if not self._pending:
+            return None
+        panel, k = self._pack(self._pending)
+        out = self.filt.apply(upload(panel, self.device), backend=self.backend, **self.opts)
+        (out,) = host_copy(out)  # (eta, N, panel_width)
+        self._pending.clear()
+        self.served += k
+        self.applies += 1
+        return [out[:, :, i] for i in range(k)]
+
+    # -- solve-as-a-service lane -----------------------------------------
+
+    def submit_solve(self, signal) -> list[SolveResult] | None:
+        """Queue one (N,) signal for the iterative-solve lane; returns the
+        per-request :class:`SolveResult` list (submission order) when the
+        panel fills."""
+        if self.solver is None:
+            raise ValueError("engine has no solver=; build one with lasso_panel_solver()")
+        self._pending_solves.append(np.asarray(signal))
+        if len(self._pending_solves) >= self.panel_width:
+            return self.flush_solves()
+        return None
+
+    def flush_solves(self) -> list[SolveResult] | None:
+        """Solve all pending requests now (pads a partial panel).
+
+        The F queued signals are packed into one (N, F) panel and answered
+        by a SINGLE solver run whose every filter call carries the whole
+        panel. Each caller receives the shared iteration/communication
+        metadata with its own solution column.
+        """
+        if not self._pending_solves:
+            # empty lane drains harmlessly, like flush() — even with no
+            # solver configured
+            return None
+        if self.solver is None:
+            raise ValueError("engine has no solver=; build one with lasso_panel_solver()")
+        panel, k = self._pack(self._pending_solves)
+        res = self.solver(upload(panel, self.device))
+        self._pending_solves.clear()
+        self.solved += k
+        self.solves += 1
+        return solve_answers(res, k)
+
+    # -- streaming lane ---------------------------------------------------
+
+    def submit_frame(self, stream_id, frame) -> list[FrameResult] | None:
+        """Queue one (N,) frame on ``stream_id``'s streaming lane.
+
+        Frames of the same stream are answered in submission order by a
+        per-stream :class:`repro_torch.stream.StreamingFilter` (delta
+        filtering with cached state). Auto-flushes when ``panel_width``
+        frames are pending; returns the flushed :class:`FrameResult` list
+        (submission order) or None.
+        """
+        self._pending_frames.append((stream_id, np.asarray(frame)))
+        if len(self._pending_frames) >= self.panel_width:
+            return self.flush_frames()
+        return None
+
+    def flush_frames(self) -> list[FrameResult] | None:
+        """Answer all pending frames now, in submission order.
+
+        Per-frame latency and halo-words accounting accumulate on the
+        engine (``frames_served``, ``stream_words``,
+        ``stream_latency_s``).
+        """
+        if not self._pending_frames:
+            return None
+        results: list[FrameResult] = []
+        for stream_id, frame in self._pending_frames:
+            lane = self._streams.get(stream_id)
+            if lane is None:
+                lane = StreamingFilter(
+                    self.filt,
+                    backend=self.backend,
+                    opts=self.opts,
+                    device=self.device,
+                    **self.stream_opts,
+                )
+                self._streams[stream_id] = lane
+            res = lane.push(frame)
+            results.append(res)
+            self.frames_served += 1
+            self.stream_words += res.words
+            self.stream_latency_s += res.latency_s
+        self._pending_frames.clear()
+        return results
+
+    def _pack(self, pending: list[np.ndarray]) -> tuple[np.ndarray, int]:
+        """Stack pending (N,) requests into a fixed-width (N, F) panel."""
+        k = len(pending)
+        panel = np.stack(pending, axis=1)  # (N, k)
+        if panel.dtype == np.float64:  # host inputs default to f64
+            panel = panel.astype(np.float32)
+        if k < self.panel_width:
+            panel = np.pad(panel, ((0, 0), (0, self.panel_width - k)))
+        return panel, k
+
+
+@dataclasses.dataclass
+class _LassoPanelSolver:
+    """Callable ``panel -> SolveResult`` for the engine's solve lane.
+
+    ``backend=None`` means "not yet bound": :class:`GraphFilterEngine`
+    fills it with its own backend at construction so the apply and solve
+    lanes agree; standalone use falls back to ``"bsr"``.
+    """
+
+    filt: GraphFilter
+    method: str
+    mu: Any
+    step: float | None
+    n_iters: int
+    tol: float | None
+    backend: str | None
+    opts: dict
+
+    def __call__(self, panel: torch.Tensor) -> SolveResult:
+        problem = LassoProblem(filt=self.filt, y=panel, mu=self.mu, step=self.step)
+        return solve_problem(
+            problem,
+            method=self.method,
+            n_iters=self.n_iters,
+            tol=self.tol,
+            backend=self.backend or "bsr",
+            **self.opts,
+        )
+
+
+def lasso_panel_solver(
+    filt: GraphFilter,
+    *,
+    method: str = "fista",
+    mu=1.0,
+    step: float | None = None,
+    n_iters: int = 40,
+    tol: float | None = None,
+    backend: str | None = None,
+    **opts,
+) -> Callable[[torch.Tensor], SolveResult]:
+    """Build a panel solver for :class:`GraphFilterEngine`'s solve lane.
+
+    Returns ``panel -> SolveResult`` running SGWT-lasso denoising
+    (:class:`repro_torch.solvers.LassoProblem`) over the whole (N, F)
+    panel with one ``method`` solve. Leave ``backend=None`` to inherit the
+    owning engine's backend (set it explicitly only to make the lanes
+    deliberately diverge). The async engine records a fixed-budget spec
+    (``tol=None``) on a ``traceable`` backend as one program per width
+    bucket.
+    """
+    return _LassoPanelSolver(
+        filt=filt,
+        method=method,
+        mu=mu,
+        step=step,
+        n_iters=n_iters,
+        tol=tol,
+        backend=backend,
+        opts=opts,
+    )

@@ -26,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import cached_upload
 from repro_torch.filters import GraphFilter
 
 __all__ = ["SolveResult", "LassoProblem", "GramProblem"]
@@ -33,12 +34,20 @@ __all__ = ["SolveResult", "LassoProblem", "GramProblem"]
 
 def _cast(value, like: torch.Tensor) -> torch.Tensor:
     """``value`` as a tensor of ``like``'s dtype and device (explicit cast:
-    a float64 host scalar must not promote a float32 solve)."""
+    a float64 host scalar must not promote a float32 solve). A host scalar
+    becomes a device fill and a host array a once-per-content upload, so
+    no call makes a host-to-device copy (which synchronises the stream and
+    cannot run inside a recorded CUDA graph)."""
     if isinstance(value, torch.Tensor):
         if value.device != like.device:
             raise ValueError(f"tensor is on {value.device}, the signal on {like.device}")
         return value.to(like.dtype)
-    return torch.as_tensor(np.asarray(value), device=like.device).to(like.dtype)
+    arr = np.asarray(value)
+    if arr.ndim == 0:
+        return torch.full((), arr.item(), dtype=like.dtype, device=like.device)
+    if like.device.type == "cuda":
+        return cached_upload(arr, like.device, like.dtype)
+    return torch.as_tensor(arr, device=like.device).to(like.dtype)
 
 
 @dataclasses.dataclass

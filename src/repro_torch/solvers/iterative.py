@@ -286,8 +286,11 @@ def lasso_panel_program(
     (eta, N, F) coefficients, ``history`` the (n_iters,) float32
     panel-summed objective trace, kept on the device. Where the reference
     stages one pure program for ``jax.jit``, the port returns a plain
-    function with no early exit and no host synchronisation. Requires a
-    ``traceable`` backend, as the reference does.
+    function with no early exit and no host synchronisation, which the
+    serving layer records as one CUDA graph (its scalars are device fills
+    and its coefficients once-per-content uploads, so nothing copies from
+    the host inside the recorded region). Requires a ``traceable``
+    backend, as the reference does.
     """
     if not backend_is_traceable(backend):
         raise ValueError(

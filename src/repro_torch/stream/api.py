@@ -63,12 +63,12 @@ __all__ = ["FrameResult", "StreamingFilter"]
 
 
 def stream_device(filt: GraphFilter, device) -> torch.device:
-    """The device a stream over ``filt`` runs on: ``device=`` resolved
-    (default ``cuda``, raising without it), which must be the device of
-    the filter's bound graph."""
+    """The device a stream (or a serving engine) over ``filt`` runs on:
+    ``device=`` resolved (default ``cuda``, raising without it), which
+    must be the device of the filter's bound graph."""
     dev = resolve_device(device)
     if filt.graph is not None and filt.graph.device != dev:
-        raise ValueError(f"the filter's graph is on {filt.graph.device}, the stream on {dev}")
+        raise ValueError(f"the filter's graph is on {filt.graph.device}, not on {dev}")
     return dev
 
 

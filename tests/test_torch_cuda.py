@@ -292,3 +292,166 @@ def test_joint_halo_on_cuda_matches_dense_without_kernels(cuda_device):
     a = filt.apply(f, backend="dense")
     torch.testing.assert_close(filt.adjoint(a, backend="halo", mesh=mesh),
                                filt.adjoint(a, backend="dense"), rtol=1e-5, atol=1e-5)
+
+
+# ---- the serving layer: one recorded CUDA graph per panel shape ------------
+
+
+def _serve_setting(device, order=20):
+    n = 500
+    gen = torch.Generator().manual_seed(3)
+    g = tgraph.connected_sensor_graph(gen, n=n, device=device)
+    lmax = float(g.lmax_bound())
+    filt = GraphFilter.from_multipliers(tmult.sgwt_filter_bank(lmax, 4), order, graph=g, lmax=lmax)
+    panels = [torch.randn(n, 16, generator=gen).to(device) for _ in range(3)]
+    return filt, panels
+
+
+@pytest.mark.parametrize("backend,opts,want", [("bsr", {}, (1, 0)),
+                                               ("bsr", {"fuse": False}, (0, 20)),
+                                               ("dense", {}, (0, 0))],
+                         ids=["bsr-fused", "bsr-stepwise", "dense"])
+def test_panel_program_replays_match_eager_and_count_launches(cuda_device, backend, opts, want):
+    from repro_torch.filters import CudaGraphProgram
+
+    filt, panels = _serve_setting(cuda_device)
+    prog = filt.panel_program(backend=backend, donate=True, **opts)
+    assert isinstance(prog, CudaGraphProgram)
+    cheb_bsr.reset_launch_counts()
+    first = prog(panels[0]).clone()
+    # the first call: one eager warm-up, then the capture (which launches
+    # nothing) and one replay
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == tuple(
+        2 * w for w in want)
+    assert prog.launches_per_replay == want
+    for p in panels[1:]:
+        cheb_bsr.reset_launch_counts()
+        got = prog(p)
+        assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == want
+        torch.testing.assert_close(got, filt.apply(p, backend=backend, **opts), rtol=0, atol=1e-6)
+    torch.testing.assert_close(first, filt.apply(panels[0], backend=backend, **opts),
+                               rtol=0, atol=1e-6)
+    assert (prog.captures, prog.replays) == (1, 3)
+    assert prog.graph is not None and prog.graph.raw_cuda_graph() != 0  # kept for inspection
+    torch.testing.assert_close(first, filt.apply(panels[0], backend="dense"), rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="recorded for"):
+        prog(panels[0][:, :8].contiguous())
+    with pytest.raises(ValueError, match="takes tensors on"):
+        prog(panels[0].cpu())
+
+
+def test_panel_program_memory_is_flat_and_donation_hands_back_the_static_output(cuda_device):
+    filt, panels = _serve_setting(cuda_device)
+    prog = filt.panel_program(backend="bsr", donate=True)
+    out0 = prog(panels[0])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    seen = []
+    for i in range(5):
+        out = prog(panels[i % 3])
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated(cuda_device))
+        assert out.data_ptr() == out0.data_ptr()  # donated: the static output
+    assert seen == [before] * 5
+    own = filt.panel_program(backend="bsr", donate=False)
+    a = own(panels[0])
+    a_copy = a.clone()
+    b = own(panels[1])
+    assert a.data_ptr() != b.data_ptr()
+    torch.testing.assert_close(a, a_copy, rtol=0, atol=0)  # not overwritten
+
+
+def test_a_capture_that_fails_raises(cuda_device):
+    from repro_torch.filters import CudaGraphProgram
+
+    def syncs(x):
+        return x * float(x.sum())  # reads the device inside the recorded region
+
+    prog = CudaGraphProgram(syncs, cuda_device)
+    before = (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
+    with pytest.raises(RuntimeError):
+        prog(torch.ones(8, 2, device=cuda_device))
+    assert prog.captures == 0 and prog.graph is None
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == before
+    torch.cuda.synchronize()  # the device is still usable
+    with pytest.raises(ValueError, match="CUDA device"):
+        CudaGraphProgram(syncs, "cpu")
+
+
+def test_async_engine_records_apply_and_solve_programs(cuda_device):
+    from repro_torch.serve import AsyncGraphFilterEngine, SchedulerConfig, lasso_panel_solver
+    from repro_torch.solvers import LassoProblem, fista
+
+    filt, _ = _serve_setting(cuda_device, order=12)
+    rng = np.random.default_rng(0)
+    sigs = rng.normal(size=(20, 500)).astype(np.float32)
+    eng = AsyncGraphFilterEngine(
+        filt, backend="bsr", solver=lasso_panel_solver(filt, n_iters=4),
+        config=SchedulerConfig(max_panel=8, min_bucket=4), device=cuda_device)
+
+    def workload(t0):
+        cheb_bsr.reset_launch_counts()
+        tks = [eng.submit(s, now=t0) for s in sigs[:11]]  # buckets 8 + 4
+        tks += [eng.submit_solve(s, now=t0) for s in sigs[11:14]]  # bucket 4
+        eng.drain(now=t0)
+        assert all(t.done for t in tks)
+        return tks, cheb_bsr.cheb_union_cuda.launches
+
+    tks, _ = workload(0.0)
+    assert eng.stats()["captures"] == 3 and eng.recompiles == 3
+    tks, launches = workload(1.0)
+    assert eng.recompiles == 3 and eng.stats()["captures"] == 3
+    assert launches == 2 * 1 + 1 * (4 + 1)  # two apply panels, one FISTA-4 panel
+    for tk, s in zip(tks[:11], sigs[:11]):
+        assert tk.result.device.type == "cpu"
+        torch.testing.assert_close(tk.result, filt.apply(torch.as_tensor(s).to(cuda_device),
+                                                         backend="bsr").cpu(), rtol=0, atol=1e-5)
+    for tk, s in zip(tks[11:], sigs[11:14]):
+        want = fista(LassoProblem(filt=filt, y=torch.as_tensor(s).to(cuda_device), mu=1.0),
+                     n_iters=4, backend="bsr")
+        assert tk.result.x.device.type == "cpu" and tk.result.iterations == 4
+        torch.testing.assert_close(tk.result.x, want.x.cpu(), rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(tk.result.aux, want.aux.cpu(), rtol=1e-4, atol=1e-4)
+
+
+def test_entry_points_default_to_the_current_card(cuda_device):
+    from repro_torch.serve import AsyncGraphFilterEngine, GraphFilterEngine
+    from repro_torch.stream import StreamingFilter
+
+    filt, panels = _serve_setting(cuda_device, order=8)
+    sig = panels[0][:, 0].cpu().numpy()
+    for make in (GraphFilterEngine, AsyncGraphFilterEngine):
+        assert make(filt).device == filt.graph.device
+    (out,) = GraphFilterEngine(filt, panel_width=1).submit(sig)
+    torch.testing.assert_close(out, filt.apply(panels[0][:, 0], backend="bsr").cpu(),
+                               rtol=0, atol=1e-6)
+    res = StreamingFilter(filt, backend="bsr").push(sig)
+    assert res.out.device == filt.graph.device
+
+
+def test_a_replay_survives_eviction_from_the_upload_cache(cuda_device):
+    # A graph reads its coefficients by address. Once 64 other arrays
+    # have gone through the upload cache, the coefficients' entry is
+    # evicted; the program must still hold them, or the allocator hands
+    # their block to the garbage below and a replay reads it.
+    from repro_torch.device import cached_upload
+
+    filt, panels = _serve_setting(cuda_device, order=17)  # coefficients no other test uploads
+    # An eager apply uploads the coefficients on the current stream (a
+    # program's warm-up would upload them on its side stream, whose
+    # freed blocks the garbage below, made on this stream, never gets).
+    filt.apply(panels[0], backend="bsr")
+    progs = {"fused": (filt.panel_program(backend="bsr", donate=True), {}),
+             "stepwise": (filt.panel_program(backend="bsr", donate=True, fuse=False),
+                          {"fuse": False})}
+    for prog, _ in progs.values():
+        prog(panels[0])
+    rng = np.random.default_rng(5)
+    for _ in range(65):
+        cached_upload(rng.normal(size=filt.coeffs.shape), cuda_device, torch.float32)
+    garbage = [torch.full(filt.coeffs.shape, 1e3, device=cuda_device) for _ in range(512)]
+    for name, (prog, opts) in progs.items():
+        got = prog(panels[1]).clone()
+        torch.testing.assert_close(got, filt.apply(panels[1], backend="bsr", **opts),
+                                   rtol=0, atol=1e-6, msg=name)
+    assert len(garbage) == 512

@@ -36,7 +36,7 @@ def test_port_imports_neither_jax_nor_reference():
         env={**os.environ, "PYTHONPATH": str(SRC)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 36  # every module of the slices was imported
+    assert int(proc.stdout.strip()) >= 42  # every module of the slices was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -92,12 +92,71 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         StreamingLasso(filt)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         streaming_denoise(g, [np.zeros(9, np.float32)])
+    from repro_torch.serve import AsyncGraphFilterEngine, GraphFilterEngine
+
+    for engine in (GraphFilterEngine, AsyncGraphFilterEngine):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(filt)
+        cpu_engine = engine(filt, backend="dense", device="cpu")
+        assert cpu_engine.device == torch.device("cpu")
+    sync = GraphFilterEngine(filt, backend="dense", panel_width=1, device="cpu")
+    (out,) = sync.submit(np.ones(9, np.float32))
+    assert out.shape == (1, 9) and out.device.type == "cpu"
+    asyn = AsyncGraphFilterEngine(filt, backend="dense", device="cpu")
+    assert asyn.wait(asyn.submit(np.ones(9, np.float32), now=0.0), now=0.0).shape == (1, 9)
     from repro_torch import distributed_denoising, distributed_wavelet_ista, quickstart
 
     for module in (quickstart, distributed_denoising, distributed_wavelet_ista):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             module.main()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_names_the_current_card(monkeypatch):
+    # A bare "cuda" must compare equal to the device of tensors made on
+    # it (cuda:<current>), or a filter's graph is refused as on another
+    # device by the streams and engines that default to "cuda".
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device() == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pinned_uploads_outlive_the_upload_cache():
+    # A recorded CUDA graph reads its coefficients by address, so the
+    # program keeps what the capture read: eviction from the 64-entry
+    # upload cache must not free a pinned tensor.
+    from repro_torch.device import cached_upload, pinned_uploads
+
+    coeffs = np.arange(12, dtype=np.float64).reshape(3, 4) / 7.0
+    with pinned_uploads() as held:
+        first = cached_upload(coeffs, torch.device("cpu"), torch.float32)
+        assert cached_upload(coeffs, torch.device("cpu"), torch.float32) is first
+    outside = cached_upload(coeffs + 1.0, torch.device("cpu"), torch.float32)
+    assert list(held.values()) == [first]  # one entry per tensor, none after the block
+    assert all(t is not outside for t in held.values())
+    for i in range(65):  # evicts ``coeffs`` from the cache
+        cached_upload(np.full((3, 4), i + 0.5), torch.device("cpu"), torch.float32)
+    again = cached_upload(coeffs, torch.device("cpu"), torch.float32)
+    assert again is not first  # uploaded anew: the cache had dropped it
+    torch.testing.assert_close(held[id(first)], torch.as_tensor(coeffs, dtype=torch.float32),
+                               rtol=0, atol=0)
+
+
+def test_launch_count_api_orders_union_then_step():
+    from repro_torch.kernels import cheb_bsr
+
+    cheb_bsr.reset_launch_counts()
+    assert cheb_bsr.launch_counts() == (0, 0)
+    cheb_bsr.add_launches((3, 20))
+    assert cheb_bsr.launch_counts() == (3, 20)
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == (3, 20)
+    cheb_bsr.add_launches((-3, -20))
+    assert cheb_bsr.launch_counts() == (0, 0)
+    with pytest.raises(ValueError):
+        cheb_bsr.add_launches((1,))
 
 
 def test_interop_carries_reference_state():
