@@ -121,7 +121,24 @@ Phases, each printing its own lines:
    measured: everything served, no recompile and no capture in the
    measured replay, union launches equal to the lanes' counts; per lane
    p50/p99 virtual latency, capacity beside the sync engine's, pad waste,
-   evictions and the device's idle share.
+   evictions and the device's idle share;
+11. gossip and the training substrate (``repro_torch.core.gossip``,
+   ``train``, ``optim``, ``runtime``, ``checkpoint``) on
+   ``StackedMesh(8)``, outside the counted windows; it must launch no bsr
+   kernel (checked). At the example's shape (``repro_torch.gossip_consensus``:
+   w 64 x 32, b 32 per rank) exactly: err/init within 1.05 x the minimax
+   bound at M = 2-16, ring words equal to the analytic words (399360 at M
+   = 12), per-leaf gossip equal to 2- and 4-bucket packing bit for bit in
+   f32, bf16 payloads within ``payload_roundoff_bound``, and
+   ``StragglerInjector`` counting P (M - r) rounds. Timed: a ~100 M
+   parameter f32 tree per rank (six 4096 x 4096 matrices and six
+   4096-vectors) at ``required_order(8, 1e-3)`` = 10, packed into 1 and 4
+   buckets with f32 and bf16 payloads: median CUDA-event ms per sync and
+   per round against the bytes bound, words per rank (exact), peak
+   ``memory_allocated`` and err/init against its bound. Then a checkpoint
+   round trip of a card tree (f32, bf16, fp8, int32) bit for bit, 5 AdamW
+   steps on the card against the CPU (1e-6), and ``run_with_restarts`` of
+   a toy trainer through two injected failures (final step, 2 restarts).
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -188,6 +205,14 @@ LASSO_TOL, LASSO_BUDGET = 5e-5, 12000  # the streaming lasso's tolerance and bud
 SERVE_BUCKETS, SERVE_ITERS, SERVE_REQUESTS, SERVE_FRAME_STREAMS = (8, 16, 32, 64, 128), 8, 300, 16
 SERVE_STREAMS, SERVE_RATE, SERVE_SECONDS, SERVE_BUDGET_S = 100_000, 1000.0, 2.0, 0.05
 REPLAY_TOL, SOLO_TOL, SERVE_SOLVE_TOL = 1e-6, 1e-5, 1e-4
+# The gossip phase: P ranks on a StackedMesh. The example's shape (w 64 x 32,
+# b 32 per rank; bucketed at M = 12) is checked exactly; the timed tree is
+# what a data-parallel user syncs, ~100 M f32 parameters per rank
+# (GOSSIP_LEAVES matrices of GOSSIP_SIDE^2 and as many bias vectors), at
+# required_order(P, GOSSIP_EPS), packed into each of GOSSIP_BUCKETS buckets.
+GOSSIP_RANKS, GOSSIP_ORDER, GOSSIP_LEAVES, GOSSIP_SIDE = 8, 12, 6, 4096
+GOSSIP_EPS, GOSSIP_BUCKETS, GOSSIP_REPS = 1e-3, (1, 4), 5
+ADAMW_TOL = 1e-6  # card against CPU over 5 steps
 
 
 def say(msg: str) -> None:
@@ -1925,6 +1950,204 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
     return out
 
 
+class _ToyTrainer:
+    """A trainer with nothing of a model: AdamW steps on a card tree toward
+    a fixed target, a checkpoint every ``every`` steps, and a shared
+    failure injector (a lost node stays lost across restarts)."""
+
+    def __init__(self, mgr, start_step, injector, dev, every=5):
+        import torch
+
+        from repro_torch import checkpoint, optim
+
+        self.mgr, self.injector, self.every = mgr, injector, every
+        self.cfg = optim.AdamWConfig(peak_lr=1e-2, warmup_steps=2, total_steps=40)
+        gen = torch.Generator(device=dev).manual_seed(21)
+        self.target = torch.randn(64, 32, generator=gen, device=dev)
+        params = {"w": torch.zeros(64, 32, device=dev), "b": torch.zeros(32, device=dev)}
+        state = {"params": params, "opt": optim.init_opt_state(params, self.cfg)}
+        if start_step:
+            state = checkpoint.restore(mgr.dir, start_step, state, device=dev)
+        self.params, self.opt = state["params"], state["opt"]
+
+    def run(self, n_steps, start_step=0):
+        from repro_torch import optim
+
+        step = start_step
+        while step < n_steps:
+            self.injector(step)
+            grads = {"w": self.params["w"] - self.target, "b": self.params["b"] - 1.0}
+            self.params, self.opt, _ = optim.adamw_update(self.params, grads, self.opt, self.cfg)
+            step += 1
+            if step % self.every == 0 or step == n_steps:
+                self.mgr.save_async(step, {"params": self.params, "opt": self.opt})
+        self.mgr.wait()
+        return {"final_step": step, "opt_step": int(self.opt["step"])}
+
+
+def gossip_phase(dev) -> dict:
+    """Phase 11: Chebyshev gossip consensus on ``StackedMesh(8)`` and the
+    model-free training substrate (buckets, AdamW, fault runtime,
+    checkpoints) on the card. No bsr kernel runs here (the caller checks)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint, gossip_consensus, optim, runtime
+    from repro_torch.core import gossip
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    p, m = GOSSIP_RANKS, GOSSIP_ORDER
+    out = {}
+
+    # -- exact, at the example's shape ---------------------------------------
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        ex = gossip_consensus.main(device=dev)
+    for line in log.getvalue().splitlines():
+        if line.strip():
+            say(f"[gossip] example | {line}")
+    for order, (rel, bnd) in sorted(ex["orders"].items()):
+        require(rel <= 1.05 * bnd, f"gossip M={order}: err/init {rel:.3e} > 1.05 x {bnd:.3e}")
+    n_ex = ex["n_params"]
+    total = ex["bucketed"]["bucketed f32"]["words"] * p
+    require(total == gossip.gossip_message_words(m, p, n_ex) == 399360,
+            f"ring words {total} at M={m}, P={p} (want 399360)")
+    bf16 = ex["bucketed"]["bucketed bf16"]
+    require(bf16["rel_err"] <= gossip.payload_roundoff_bound(m),
+            f"bf16 payload error {bf16['rel_err']:.3e} > {gossip.payload_roundoff_bound(m)}")
+    mesh = StackedMesh(p, dev)
+    gen = torch.Generator().manual_seed(0)
+    grads = {"w": torch.randn(p, 64, 32, generator=gen).to(dev),
+             "b": torch.randn(p, 32, generator=gen).to(dev)}
+    serial = gossip.chebyshev_gossip_mean(grads, mesh, order=m)
+    for k_b in (2, 4):
+        packed = gossip_consensus.sync_bucketed(grads, mesh, k_b, m)
+        require(all(torch.equal(serial[k], packed[k]) for k in grads),
+                f"{k_b}-bucket f32 gossip differs from per-leaf gossip")
+    injected = {}
+    for r in (0, 4):
+        inj = runtime.StragglerInjector(alpha_ms=0.0)
+        gossip.chebyshev_gossip_mean(grads, mesh, order=m, truncate=r, round_delay=inj.gossip_round)
+        injected[r] = inj.rounds_injected
+        require(inj.rounds_injected == p * (m - r),
+                f"rounds_injected {inj.rounds_injected} at truncate={r} (want {p * (m - r)})")
+    say(f"[gossip] exact, P={p} w 64x32 b 32: err/init within 1.05x the bound at M="
+        + ",".join(str(o) for o in sorted(ex["orders"])) + f"; ring words at M={m} {total} "
+        f"(analytic {gossip.gossip_message_words(m, p, n_ex)}), per rank f32 "
+        f"{ex['bucketed']['bucketed f32']['words']} bf16 {bf16['words']}; per-leaf == 2- and "
+        f"4-bucket bit for bit; bf16 err/init {bf16['rel_err']:.3e} (bound "
+        f"{gossip.payload_roundoff_bound(m):.4f}); rounds_injected r=0 {injected[0]}, r=4 "
+        f"{injected[4]}")
+
+    # -- timed, at a size a data-parallel user syncs ------------------------
+    side, order = GOSSIP_SIDE, gossip.required_order(p, GOSSIP_EPS)
+    g_big = torch.Generator(device=dev).manual_seed(11)
+    big = {}
+    for i in range(GOSSIP_LEAVES):
+        big[f"w{i}"] = torch.randn(p, side, side, generator=g_big, device=dev)
+        big[f"b{i}"] = torch.randn(p, side, generator=g_big, device=dev)
+    n_rank = sum(v[0].numel() for v in big.values())
+    mean = {k: v.mean(dim=0) for k, v in big.items()}
+
+    def disagreement(tree):
+        return math.sqrt(sum(float(((tree[k] - mean[k][None]) ** 2).sum()) for k in big))
+
+    init = disagreement(big)
+    lam1, lmax = gossip.ring_spectrum_bounds(p)
+    contraction = gossip.consensus_contraction(order, lam1, lmax)
+    # A round reads t_{k-1}, t_{k-2} and the sum and writes t_k and the sum,
+    # each P x n f32 once (the exchange need not touch memory on one card).
+    round_bytes = 5 * p * n_rank * 4
+    round_bound_ms = round_bytes / HBM_BYTES_PER_S * 1e3
+    out["timed"] = []
+    for n_buckets in GOSSIP_BUCKETS:
+        for payload in (None, "bfloat16"):
+            label = f"K={n_buckets} {payload or 'float32'}"
+
+            def fn(n_buckets=n_buckets, payload=payload):
+                return gossip_consensus.sync_bucketed(big, mesh, n_buckets, order, payload)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            res = {}
+            words = gossip.measured_ppermute_words(mesh, lambda: res.update(fn()))
+            analytic = gossip.gossip_message_words(order, p, n_rank) // p
+            require(words == (analytic if payload is None else analytic // 2),
+                    f"gossip {label}: words per rank {words}, analytic {analytic}")
+            rel = disagreement(res) / init
+            limit = contraction * 1.05 if payload is None else gossip.payload_roundoff_bound(order)
+            require(rel <= limit, f"gossip {label}: err/init {rel:.3e} > {limit:.3e}")
+            del res
+            peak = torch.cuda.max_memory_allocated(dev)
+            ms = median_ms(fn, reps=GOSSIP_REPS, warmup=1)
+            rec = {"label": label, "ms": ms, "ms_per_round": ms / order, "words": words,
+                   "rel_err": rel, "peak_gb": peak / 1e9, "extra_gb": (peak - base) / 1e9}
+            out["timed"].append(rec)
+            say(f"[gossip] timed P={p} n={n_rank} per rank ({GOSSIP_LEAVES} x {side}^2 + "
+                f"{GOSSIP_LEAVES} x {side}) M={order} {label}: {ms:.3f} ms per sync, "
+                f"{ms / order:.3f} ms per round (bound {round_bound_ms:.3f}: "
+                f"{round_bytes / 1e9:.2f} GB read+written per round at 3.35 TB/s, "
+                f"{round_bound_ms / (ms / order):.1%} of it); words per rank {words}; "
+                f"err/init {rel:.3e} (bound {limit:.3e}); peak memory_allocated "
+                f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the tree)")
+    del big, mean
+
+    # -- the substrate on the card ---------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(257, 33, generator=gen, device=dev)
+        tree = {"f32": x, "bf16": x.bfloat16(), "fp8": [x.to(torch.float8_e4m3fn),
+                                                         x.to(torch.float8_e5m2)],
+                "int32": torch.arange(1000, dtype=torch.int32, device=dev), "step": torch.tensor(
+                    7, dtype=torch.int32, device=dev)}
+        checkpoint.save(tmp, 7, tree)
+        back = checkpoint.restore(tmp, 7, tree, device=dev)
+        for a, b in zip(tree_leaves(tree), tree_leaves(back)):
+            require(b.device == a.device and b.dtype == a.dtype and b.shape == a.shape
+                    and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)),
+                    f"checkpoint round trip of a {a.dtype} leaf")
+        cfg = optim.AdamWConfig(peak_lr=1e-2, warmup_steps=2, total_steps=20)
+        gcpu = torch.Generator().manual_seed(4)
+        params = {"w": torch.randn(512, 256, generator=gcpu), "b": torch.randn(256, generator=gcpu)}
+        gseq = [tree_map(lambda v: torch.randn(v.shape, generator=gcpu), params) for _ in range(5)]
+        state = {"cpu": (params, optim.init_opt_state(params, cfg))}
+        dparams = tree_map(lambda v: v.to(dev), params)
+        state["card"] = (dparams, optim.init_opt_state(dparams, cfg))
+        for g_step in gseq:
+            for where, (pp, st) in list(state.items()):
+                g = g_step if where == "cpu" else tree_map(lambda v: v.to(dev), g_step)
+                pp, st, _ = optim.adamw_update(pp, g, st, cfg)
+                state[where] = (pp, st)
+        adam_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(state["card"]), tree_leaves(state["cpu"])))
+        require(adam_err <= ADAMW_TOL, f"AdamW card vs CPU after 5 steps: {adam_err:.3e}")
+        mgr = checkpoint.CheckpointManager(os.path.join(tmp, "train"), keep=2)
+        injector = runtime.FailureInjector([12, 23])
+
+        def latest():
+            mgr.wait()
+            return checkpoint.latest_step(mgr.dir)
+
+        rr = runtime.run_with_restarts(lambda s: _ToyTrainer(mgr, s, injector, dev), 30, latest)
+        require(rr["final_step"] == 30 and rr["opt_step"] == 30 and rr["restarts"] == 2,
+                f"run_with_restarts: {rr}")
+        kept = sorted(int(q.name.split("_")[1]) for q in mgr.dir.glob("step_*"))
+        require(kept == [25, 30], f"checkpoints kept {kept}")
+    say(f"[gossip] substrate on the card: checkpoint round trip (f32, bf16, fp8 e4m3fn and "
+        f"e5m2, int32) bit for bit; 5 AdamW steps card vs CPU max |diff| {adam_err:.3e} "
+        f"(tol {ADAMW_TOL:g}); run_with_restarts with failures at steps 12 and 23: final step "
+        f"{rr['final_step']}, restarts {rr['restarts']}, checkpoints kept {kept}")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[gossip] phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Keep the profiler's CUPTI attached between sessions: with the default
     # teardown after each one, sessions in a short test process on the
@@ -2298,6 +2521,12 @@ def main() -> int:
         f"{sv_count.union}, cheb_step {sv_count.step}")
     main_union += sv_count.union
     main_step += sv_count.step
+
+    # ---- 11. gossip consensus and the training substrate ------------------------
+    u_before, s_before = cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches
+    gossip_phase(dev)
+    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
+            == (u_before, s_before), "the gossip phase launched a bsr kernel")
     say(smi)
 
     kernels = [

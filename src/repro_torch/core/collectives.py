@@ -16,11 +16,14 @@ Convention: every per-rank tensor carries a leading rank axis of size
 the local math is written once over that axis and serves both meshes.
 
 Both meshes count their calls and the elements each rank sends to the
-*other* ranks (padding included, self-sends excluded), per kind:
-``all_to_all``, ``all_gather``, ``shift`` (one ``ppermute``) and
-``gather`` (assembling a result on every rank, outside the schedules'
-exchanges). Summed over the processes of a group, the element counts
-equal the stacked mesh's; the call counts are per rank on both.
+*other* ranks (padding included, self-sends excluded), and those
+elements' bytes, per kind: ``all_to_all``, ``all_gather``, ``shift`` (one
+open-ended ``ppermute``: the edge ranks receive zeros), ``ring`` (one
+cyclic ``ppermute`` with pairs ``(i, (i+1) % P)`` or the reverse, the
+exchange of ``repro/core/gossip.py``) and ``gather`` (assembling a result
+on every rank, outside the schedules' exchanges). Summed over the
+processes of a group, the element counts equal the stacked mesh's; the
+call counts are per rank on both.
 """
 
 from __future__ import annotations
@@ -79,14 +82,17 @@ class _Mesh:
     def __init__(self):
         self.calls: collections.Counter = collections.Counter()
         self.elements: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
 
     def reset_counts(self) -> None:
         self.calls.clear()
         self.elements.clear()
+        self.bytes.clear()
 
-    def _count(self, kind: str, elements: int) -> None:
+    def _count(self, kind: str, elements: int, x: torch.Tensor) -> None:
         self.calls[kind] += 1
         self.elements[kind] += int(elements)
+        self.bytes[kind] += int(elements) * x.element_size()
 
     def _check(self, x: torch.Tensor, what: str) -> None:
         if x.shape[0] != self.local_ranks:
@@ -137,7 +143,7 @@ class StackedMesh(_Mesh):
         send[q, p]``: rank p's chunk q goes to rank q."""
         self._check(x, "all_to_all")
         p = self.n_parts
-        self._count("all_to_all", x[0, 0].numel() * p * (p - 1))
+        self._count("all_to_all", x[0, 0].numel() * p * (p - 1), x)
         out = x.transpose(0, 1).contiguous()
         return _Done(out) if async_op else out
 
@@ -146,13 +152,13 @@ class StackedMesh(_Mesh):
         in rank order."""
         self._check(x, "all_gather")
         p = self.n_parts
-        self._count("all_gather", x[0].numel() * p * (p - 1))
+        self._count("all_gather", x[0].numel() * p * (p - 1), x)
         full = x.reshape((1, -1) + x.shape[2:])
         return full.expand((p,) + full.shape[1:])
 
     def _shift(self, x: torch.Tensor, fwd: bool) -> torch.Tensor:
         self._check(x, "shift")
-        self._count("shift", x[0].numel() * (self.n_parts - 1))
+        self._count("shift", x[0].numel() * (self.n_parts - 1), x)
         out = torch.zeros_like(x)
         if self.n_parts > 1:
             if fwd:
@@ -170,6 +176,22 @@ class StackedMesh(_Mesh):
         """``ppermute`` with pairs ``(i+1, i)``: rank i receives rank
         i+1's block, the last rank receives zeros."""
         return self._shift(x, fwd=False)
+
+    def _ring(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        self._check(x, "ring")
+        p = self.n_parts
+        self._count("ring", x[0].numel() * p if p > 1 else 0, x)
+        return torch.roll(x, step, dims=0)
+
+    def ring_fwd(self, x: torch.Tensor) -> torch.Tensor:
+        """``ppermute`` with pairs ``(i, (i+1) % P)``: rank i receives rank
+        i-1's block, rank 0 the last rank's."""
+        return self._ring(x, 1)
+
+    def ring_bwd(self, x: torch.Tensor) -> torch.Tensor:
+        """``ppermute`` with pairs ``((i+1) % P, i)``: rank i receives
+        rank i+1's block, the last rank rank 0's."""
+        return self._ring(x, -1)
 
     def gather_ranks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Assemble all P ranks along ``dim``: the stacked mesh holds
@@ -218,7 +240,7 @@ class GroupMesh(_Mesh):
         self._check(x, "all_to_all")
         if x.shape[1] != self.n_parts:
             raise ValueError(f"all_to_all: {x.shape[1]} chunks for {self.n_parts} ranks")
-        self._count("all_to_all", x[0, 0].numel() * (self.n_parts - 1))
+        self._count("all_to_all", x[0, 0].numel() * (self.n_parts - 1), x)
         send = x[0].contiguous()
         recv = torch.empty_like(send)
         work = dist.all_to_all_single(recv, send, group=self.group, async_op=async_op)
@@ -226,7 +248,7 @@ class GroupMesh(_Mesh):
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x, "all_gather")
-        self._count("all_gather", x[0].numel() * (self.n_parts - 1))
+        self._count("all_gather", x[0].numel() * (self.n_parts - 1), x)
         return self._gather(x[0])[None]
 
     def _gather(self, local: torch.Tensor) -> torch.Tensor:
@@ -247,7 +269,7 @@ class GroupMesh(_Mesh):
             ops.append(dist.P2POp(dist.isend, send, self._peer(dst), self.group))
         if 0 <= src < self.n_parts:
             ops.append(dist.P2POp(dist.irecv, out, self._peer(src), self.group))
-        self._count("shift", send.numel() if 0 <= dst < self.n_parts else 0)
+        self._count("shift", send.numel() if 0 <= dst < self.n_parts else 0, send)
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
@@ -259,9 +281,29 @@ class GroupMesh(_Mesh):
     def shift_bwd(self, x: torch.Tensor) -> torch.Tensor:
         return self._shift(x, fwd=False)
 
+    def _ring(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        self._check(x, "ring")
+        p = self.n_parts
+        send = x.contiguous()
+        self._count("ring", send.numel() if p > 1 else 0, send)
+        if p == 1:
+            return send.clone()
+        out = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, self._peer((self.rank + step) % p), self.group),
+               dist.P2POp(dist.irecv, out, self._peer((self.rank - step) % p), self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out
+
+    def ring_fwd(self, x: torch.Tensor) -> torch.Tensor:
+        return self._ring(x, 1)
+
+    def ring_bwd(self, x: torch.Tensor) -> torch.Tensor:
+        return self._ring(x, -1)
+
     def gather_ranks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Assemble all P ranks along ``dim`` (size 1 here) on every rank."""
-        self._count("gather", x.numel() * (self.n_parts - 1))
+        self._count("gather", x.numel() * (self.n_parts - 1), x)
         moved = torch.movedim(x, dim, 0)
         return torch.movedim(self._gather(moved), 0, dim)
 

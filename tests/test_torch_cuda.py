@@ -455,3 +455,42 @@ def test_a_replay_survives_eviction_from_the_upload_cache(cuda_device):
         torch.testing.assert_close(got, filt.apply(panels[1], backend="bsr", **opts),
                                    rtol=0, atol=1e-6, msg=name)
     assert len(garbage) == 512
+
+
+def test_ring_gossip_on_the_card_matches_the_cpu(cuda_device):
+    # No kernel of its own: gossip is plain torch over the ring exchange.
+    from repro_torch.core import gossip
+    from repro_torch.core.collectives import StackedMesh
+
+    gen = torch.Generator().manual_seed(2)
+    tree = {"w": torch.randn(8, 64, 32, generator=gen), "b": torch.randn(8, 32, generator=gen)}
+    before = cheb_bsr.launch_counts()
+    for payload, tol in ((None, 1e-6), ("bfloat16", 1e-5)):
+        cpu, card = StackedMesh(8, "cpu"), StackedMesh(8, cuda_device)
+        want = gossip.chebyshev_gossip_mean(tree, cpu, order=12, payload_dtype=payload)
+        got = {}
+        words = gossip.measured_ppermute_words(card, lambda: got.update(gossip.chebyshev_gossip_mean(
+            {k: v.to(cuda_device) for k, v in tree.items()}, card, order=12,
+            payload_dtype=payload)))
+        assert words == gossip.gossip_message_words(12, 8, 2080) // 8 // (2 if payload else 1)
+        for k in tree:
+            assert got[k].device.type == "cuda"
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=tol, atol=tol)
+    assert cheb_bsr.launch_counts() == before
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    from repro_torch import checkpoint
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(5, 7, generator=gen)
+    tree = {"f32": x, "bf16": x.bfloat16(), "e4": x.to(torch.float8_e4m3fn),
+            "e5": x.to(torch.float8_e5m2), "i": [torch.arange(6, dtype=torch.int32)]}
+    tree = {k: ([t.to(cuda_device) for t in v] if isinstance(v, list) else v.to(cuda_device))
+            for k, v in tree.items()}
+    checkpoint.save(tmp_path, 2, tree)
+    back = checkpoint.restore(tmp_path, 2, tree)
+    for a, b in zip([tree["bf16"], tree["e4"], tree["e5"], tree["f32"], tree["i"][0]],
+                    [back["bf16"], back["e4"], back["e5"], back["f32"], back["i"][0]]):
+        assert b.device == a.device and b.dtype == a.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))

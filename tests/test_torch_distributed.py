@@ -543,17 +543,25 @@ if __name__ == "__main__":
 """
 
 
-def test_group_mesh_on_gloo_matches_stacked_mesh(tmp_path):
-    """4 gloo ranks: ``GroupMesh`` against ``StackedMesh(4)`` within 1e-6
-    for halo (both schedules), allgather, grid, the halo adjoint and a
-    two-shift joint filter's halo apply and adjoint, with
-    equal exchange counts and, summed over ranks, equal elements moved.
-    The ranks rendezvous through a file store in ``tmp_path``: no port."""
+def run_gloo_ranks(script_text: str, tmp_path) -> str:
+    """Run ``script_text`` (which spawns its ranks with
+    ``torch.multiprocessing.spawn`` and takes the file-store path as its
+    argument) in a subprocess; returns its standard output. The ranks
+    rendezvous through a file store in ``tmp_path``: no port."""
     script = tmp_path / "gloo_ranks.py"
-    script.write_text(_GLOO)
+    script.write_text(script_text)
     proc = subprocess.run(
         [sys.executable, str(script), str(tmp_path / "store")], capture_output=True, text=True, timeout=180,
         env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=tmp_path,
     )
     assert proc.returncode == 0, f"{proc.stdout}\n{proc.stderr}"
-    assert proc.stdout.count("max|group - stacked|") == 4 and "OK" in proc.stdout
+    return proc.stdout
+
+
+def test_group_mesh_on_gloo_matches_stacked_mesh(tmp_path):
+    """4 gloo ranks: ``GroupMesh`` against ``StackedMesh(4)`` within 1e-6
+    for halo (both schedules), allgather, grid, the halo adjoint and a
+    two-shift joint filter's halo apply and adjoint, with
+    equal exchange counts and, summed over ranks, equal elements moved."""
+    out = run_gloo_ranks(_GLOO, tmp_path)
+    assert out.count("max|group - stacked|") == 4 and "OK" in out

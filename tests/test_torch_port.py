@@ -23,20 +23,22 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+             if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
 assert not bad, bad
 print(len(names))
 """
 
 
 def test_port_imports_neither_jax_nor_reference():
+    # nor ml_dtypes, which the card's machine lacks (checkpoints store
+    # bf16 and fp8 through torch's own byte views)
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(SRC)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 42  # every module of the slices was imported
+    assert int(proc.stdout.strip()) >= 54  # every module of the slices was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -45,7 +47,7 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
         s = line.strip()
         if s.startswith(("import ", "from ")):
             mod = s.split()[1]
-            assert mod.split(".")[0] not in ("jax", "repro"), line
+            assert mod.split(".")[0] not in ("jax", "repro", "ml_dtypes"), line
 
 
 def _no_cuda(monkeypatch):
@@ -110,6 +112,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             module.main()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_substrate_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    _no_cuda(monkeypatch)
+    from repro_torch import checkpoint, gossip_consensus, streaming_denoising
+
+    for module in (gossip_consensus, streaming_denoising):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.main()
+    checkpoint.save(tmp_path, 1, {"x": torch.zeros(2)})
+    for restore in (checkpoint.restore, checkpoint.restore_resharded):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            restore(tmp_path, 1, {"x": torch.zeros(2)})
+    assert checkpoint.restore(tmp_path, 1, {"x": torch.zeros(2)}, device="cpu")["x"].shape == (2,)
 
 
 def test_resolve_device_names_the_current_card(monkeypatch):

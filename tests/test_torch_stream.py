@@ -436,3 +436,18 @@ def test_streaming_apps_match_reference(sensor_setting):
     jest, jsres = jstreaming_wavelet(jg, frames[:2], n_scales=3, order=12, mu=2.0, n_iters=60)
     assert [r.iterations for r in sres] == [r.iterations for r in jsres]
     np.testing.assert_allclose(est.numpy(), np.asarray(jest), atol=1e-4)
+
+
+# ---- the streaming example as a port module ---------------------------------
+
+
+def test_streaming_denoising_example_runs_on_cpu():
+    from repro_torch import streaming_denoising
+
+    res = streaming_denoising.main(device="cpu")
+    assert res["max_err"] < 1e-5  # every frame against the full refilter
+    assert res["delta_frames"] >= 5  # the delta path engaged after the first frame
+    assert [r[0] for r in res["records"]] == ["full"] + ["delta"] * 5
+    assert all(r[1] == 81 for r in res["records"][1:])  # one 9 x 9 patch per frame
+    assert res["engine_frames"] == list(range(6))
+    assert res["warm_iters"][-1] <= res["cold_iters"]
