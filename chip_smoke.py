@@ -138,7 +138,29 @@ Phases, each printing its own lines:
    ``memory_allocated`` and err/init against its bound. Then a checkpoint
    round trip of a card tree (f32, bf16, fp8, int32) bit for bit, 5 AdamW
    steps on the card against the CPU (1e-6), and ``run_with_restarts`` of
-   a toy trainer through two injected failures (final step, 2 restarts).
+   a toy trainer through two injected failures (final step, 2 restarts);
+12. LM serving (``repro_torch.models``, ``repro_torch.serve.ServeEngine``,
+   ``repro_torch.launch.serve``), plain torch with no bsr kernel (checked):
+   (a) Gemma-2 2B at its published full width and depth (26 layers, d 2304,
+   vocab 256000, bf16, weights from a seeded CUDA generator) through the
+   launcher's ``serve`` at batch 4, a 4608-token prompt (past the 4096
+   window, so the local layers mask) and 64 new tokens, twice: greedy ids
+   equal and in the vocabulary; then the prefill (CUDA events, median of
+   3) against its operations bound, the decode step (median of 16) against
+   its bytes bound (weights and the whole ``s_max`` cache the naive decode
+   reads), every logit finite, tokens/s, peak ``memory_allocated``, the
+   synchronising operations per step, and the decode step's idle share
+   from ``torch.profiler`` (kernel time over the wall time of 8 steps);
+   (b) Gemma-2 2B's full widths at 2 layers (one local, one global) in f32
+   with TF32 off, the window cut to 256 for this check only so that a
+   1024-token prompt at batch 1 masks while the CPU side stays at about
+   0.3 TFLOP: prefill and 8 greedy decode logits on the card against the
+   same weights on the CPU within ``LM_NUM_TOL`` (the published window is
+   exercised by (a)); (c) all 10 LM archs at smoke width in f32, card
+   against CPU: prefill and 4 greedy decode steps, logits within
+   ``LM_SMOKE_TOL``, greedy ids equal; (d) at (b)'s shape, chunked
+   attention (chunks of 1024, and of 256 to cross chunk boundaries)
+   against naive, prefill logits within the reference's 2e-3.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -213,6 +235,16 @@ REPLAY_TOL, SOLO_TOL, SERVE_SOLVE_TOL = 1e-6, 1e-5, 1e-4
 GOSSIP_RANKS, GOSSIP_ORDER, GOSSIP_LEAVES, GOSSIP_SIDE = 8, 12, 6, 4096
 GOSSIP_EPS, GOSSIP_BUCKETS, GOSSIP_REPS = 1e-3, (1, 4), 5
 ADAMW_TOL = 1e-6  # card against CPU over 5 steps
+# The LM serving phase: Gemma-2 2B at full width through the launcher at
+# LM_BATCH x LM_PROMPT prompts and LM_NEW new tokens (s_max = prompt + new
+# + 8, as repro/launch/serve.py:53 sets it); the f32 numerics check at 2
+# layers, LM_NUM_PROMPT tokens, window LM_NUM_WINDOW, LM_NUM_STEPS decode
+# steps; the smoke configs at LM_SMOKE_STEPS decode steps; chunked against
+# naive within tests/test_arch_smoke.py:115-116's 2e-3.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "gemma2_2b", 4, 4608, 64
+LM_NUM_PROMPT, LM_NUM_WINDOW, LM_NUM_STEPS, LM_NUM_TOL = 1024, 256, 8, 1e-3
+LM_SMOKE_STEPS, LM_SMOKE_TOL, LM_CHUNK_TOL = 4, 1e-4, 2e-3
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 
 def say(msg: str) -> None:
@@ -272,6 +304,16 @@ def kernel_profile_once(fn):
     are reported, not held to the launch counters (``graph_kernel_nodes``
     reads a recorded graph's launches from the graph itself), and the
     window is padded with ``PROFILE_MARGIN_S`` of idle time on each side."""
+    evs = profiled_kernels(fn)
+    union = sum(count for name, _, count in evs if "cheb_union_kernel" in name)
+    step = sum(count for name, _, count in evs if "cheb_step" in name)
+    return sum(ms for _, ms, _ in evs), (union, step)
+
+
+def profiled_kernels(fn) -> list[tuple[str, float, int]]:
+    """One call of ``fn`` under ``torch.profiler`` inside idle margins
+    (``kernel_profile_once``): every kernel traced as (name, summed device
+    ms, launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -282,12 +324,21 @@ def kernel_profile_once(fn):
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    us = sum(getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
-             for ev in evs)
-    union = sum(ev.count for ev in evs if "cheb_union_kernel" in ev.key)
-    step = sum(ev.count for ev in evs if "cheb_step" in ev.key)
-    return us / 1e3, (union, step)
+    return [(ev.key, (getattr(ev, "self_device_time_total", None)
+                      or getattr(ev, "self_cuda_time_total", 0)) / 1e3, ev.count)
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
+def kernel_split(evs, per: int = 1, top: int = 4) -> tuple[float, float, str]:
+    """Device ms of ``profiled_kernels``' records per call (``per`` calls
+    traced): all kernels, the matrix multiplies among them (cuBLAS's
+    ``nvjet`` / ``gemm`` kernels), and the ``top`` kernels by time."""
+    total = sum(ms for _, ms, _ in evs) / per
+    gemm = sum(ms for name, ms, _ in evs
+               if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma"))) / per
+    heads = sorted(evs, key=lambda e: -e[1])[:top]
+    return total, gemm, "; ".join(f"{name[:60]} {ms / per:.3f} ms x{count // per}"
+                                  for name, ms, count in heads)
 
 
 def graph_kernel_nodes(graph) -> tuple[int, int]:
@@ -984,7 +1035,10 @@ def synchronising_ops_once(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # the mode's own notice ("a prototype feature and does not yet detect
+    # all synchronizing operations") is no synchronising operation
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+               for w in caught)
 
 
 def multishift_timing(ms: dict) -> dict:
@@ -2148,6 +2202,263 @@ def gossip_phase(dev) -> dict:
     return out
 
 
+def lm_work(cfg, batch: int, prompt: int, s_max: int, param_bytes: int, n_params: int) -> dict:
+    """Bytes and operations of Gemma-2-style serving (every layer attention
+    with a gated dense FFN): one naive-attention prefill of ``batch`` x
+    ``prompt`` tokens (the projections and FFNs, the full S x S scores and
+    their weighted sum, the second k/v pass that fills the cache, the last
+    position's unembedding) and one decode step (every weight read once,
+    the whole ``s_max`` cache the naive decode reads, one token's k/v
+    written)."""
+    t = batch * prompt
+    hq, hkv, d = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_, cfg.d_model
+    n_layers, elem = cfg.n_layers, 2 if cfg.activation_dtype == "bfloat16" else 4
+    proj = 2 * t * d * (2 * hq + 2 * hkv)
+    ffn = 2 * t * d * cfg.d_ff * 3
+    attn = 4 * batch * cfg.n_heads * prompt * prompt * cfg.head_dim_
+    kv_again = 2 * t * d * 2 * hkv
+    cache_bytes = n_layers * 2 * batch * s_max * hkv * elem
+    return {
+        "prefill_flops": n_layers * (proj + ffn + attn + kv_again) + 2 * batch * d * cfg.vocab_size,
+        "prefill_parts": (n_layers * (proj + ffn), n_layers * attn, n_layers * kv_again),
+        "prefill_bytes": param_bytes + n_layers * 2 * t * hkv * elem,
+        "decode_bytes": param_bytes + cache_bytes + n_layers * 2 * batch * hkv * elem,
+        "decode_flops": 2 * batch * n_params + 4 * batch * cfg.n_heads * s_max * cfg.head_dim_
+        * n_layers,
+        "cache_bytes": cache_bytes,
+    }
+
+
+def lm_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """``bound`` at the bf16 tensor-core peak (the LM's matmuls are bf16)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def lm_phase(dev) -> dict:
+    """Phase 12: LM serving on the card (see the module docstring). Plain
+    torch: no bsr kernel runs here (the caller checks)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.serve import make_decode_step, make_prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    par = launch_serve.PAR
+    out = {}
+
+    # -- (a) Gemma-2 2B, full width and depth, bf16, through the launcher ----
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    cfg, params = launch_serve.build(LM_ARCH, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    require((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.param_dtype, cfg.window_size)
+            == (26, 2304, 256000, "bfloat16", 4096), f"not Gemma-2 2B's published config: {cfg}")
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    require(all(t.device == dev and t.dtype == torch.bfloat16 for t in leaves),
+            "Gemma-2 2B params are not all bf16 on the card")
+    runs = [launch_serve.serve(cfg, params, batch=LM_BATCH, prompt_len=LM_PROMPT, tokens=LM_NEW,
+                               device=dev) for _ in range(2)]
+    ids = [t for row in runs[0]["tokens"] for t in row]
+    require(runs[0]["tokens"] == runs[1]["tokens"], "greedy ids differ between two runs")
+    require(len(ids) == LM_BATCH * LM_NEW and all(0 <= t < cfg.vocab_size for t in ids),
+            "greedy ids out of shape or vocabulary")
+
+    s_max = LM_PROMPT + LM_NEW + 8
+    require(s_max - LM_PROMPT >= 29, "the timed steps (20 + 1 + 8) outrun the cache")
+    prefill = make_prefill(cfg, par, s_max=s_max)
+    step = make_decode_step(cfg, par)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    with torch.inference_mode():
+        timed = []
+        for _ in range(3):
+            start, stop = events()
+            start.record()
+            logits, cache = prefill(params, tokens)
+            stop.record()
+            timed.append((start, stop))
+        torch.cuda.synchronize()
+        prefill_ms = statistics.median(a.elapsed_time(b) for a, b in timed)
+        require(logits.shape == (LM_BATCH, 1, cfg.vocab_size), f"prefill logits {logits.shape}")
+        finite = torch.isfinite(logits).all()
+        token = logits[:, -1].argmax(-1)[:, None]
+        timed = []
+        for _ in range(20):
+            start, stop = events()
+            start.record()
+            logits, cache = step(params, token, cache)
+            stop.record()
+            timed.append((start, stop))
+            finite &= torch.isfinite(logits).all()
+            token = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_times = [a.elapsed_time(b) for a, b in timed[4:]]
+        decode_ms = statistics.median(step_times)
+
+        def one_step():
+            nonlocal logits, cache, token, finite
+            logits, cache = step(params, token, cache)
+            finite &= torch.isfinite(logits).all()
+            token = logits[:, -1].argmax(-1)[:, None]
+
+        syncs = synchronising_ops_once(one_step)
+        window = events()
+
+        def eight_steps():
+            window[0].record()
+            for _ in range(8):
+                one_step()
+            window[1].record()
+
+        decode_evs = profiled_kernels(eight_steps)
+        wall_ms = window[0].elapsed_time(window[1])
+        kernel_ms, decode_gemm_ms, decode_top = kernel_split(decode_evs, per=8)
+        kernel_ms *= 8
+        prefill_evs = profiled_kernels(lambda: prefill(params, tokens))
+        prefill_kernel_ms, prefill_gemm_ms, prefill_top = kernel_split(prefill_evs)
+        require(int(cache["pos"]) == LM_PROMPT + 29, f"cache pos {int(cache['pos'])}")
+        require(bool(finite), "a non-finite logit in the full-width prefill or decode")
+    peak = torch.cuda.max_memory_allocated(dev)
+    work = lm_work(cfg, LM_BATCH, LM_PROMPT, s_max, param_bytes, n_params)
+    pb, pb_by = lm_bound(work["prefill_bytes"], work["prefill_flops"])
+    db, db_by = lm_bound(work["decode_bytes"], work["decode_flops"])
+    busy = kernel_ms / wall_ms
+    out.update(n_params=n_params, param_bytes=param_bytes, init_s=init_s, peak_gb=peak / 1e9,
+               extra_gb=(peak - base) / 1e9, prefill_ms=prefill_ms, prefill_bound_ms=pb,
+               prefill_bound_by=pb_by, decode_ms=decode_ms, decode_bound_ms=db,
+               decode_bound_by=db_by, decode_steps_ms=step_times,
+               tokens_per_s=runs[1]["tokens_per_s"], serve_wall_s=[r["wall_s"] for r in runs],
+               decode_tokens_per_s=LM_BATCH / decode_ms * 1e3, decode_syncs=syncs,
+               decode_kernel_ms=kernel_ms / 8, decode_wall_ms=wall_ms / 8, decode_idle=1 - busy)
+    parts = work["prefill_parts"]
+    say(f"[lm] (a) {cfg.name}: {n_params / 1e9:.4f} B params, {param_bytes / 1e9:.4f} GB bf16 "
+        f"(init on the card {init_s:.2f} s); batch {LM_BATCH} x prompt {LM_PROMPT} + {LM_NEW} "
+        f"new tokens, s_max {s_max}, attn naive; greedy ids equal over 2 launcher runs "
+        f"(sample {runs[0]['sample']}); every prefill and decode logit finite")
+    say(f"[lm] (a) launcher wall {runs[0]['wall_s']:.3f} s then {runs[1]['wall_s']:.3f} s "
+        f"-> {runs[1]['tokens_per_s']:.1f} tokens/s end to end (prefill included); peak "
+        f"memory_allocated {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the phase's "
+        f"start); KV cache {work['cache_bytes'] / 1e9:.3f} GB")
+    say(f"[lm] (a) prefill {prefill_ms:.2f} ms (median of 3), bound {pb:.2f} ms by {pb_by}: "
+        f"{work['prefill_flops'] / 1e12:.2f} TFLOP (projections+FFN {parts[0] / 1e12:.2f}, "
+        f"naive S^2 attention {parts[1] / 1e12:.2f}, cache k/v pass {parts[2] / 1e12:.2f}) at "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 -> {pb / prefill_ms:.1%} of the bound")
+    say(f"[lm] (a) decode step {decode_ms:.3f} ms (median of 16; min {min(step_times):.3f} max "
+        f"{max(step_times):.3f}), bound {db:.3f} ms by {db_by}: "
+        f"{work['decode_bytes'] / 1e9:.3f} GB (weights {param_bytes / 1e9:.3f} + s_max cache "
+        f"{work['cache_bytes'] / 1e9:.3f}) at 3.35 TB/s -> {db / decode_ms:.1%} of the bound; "
+        f"{LM_BATCH / decode_ms * 1e3:.1f} tokens/s in decode; synchronising operations per "
+        f"step {syncs}")
+    say(f"[lm] (a) decode idle share (torch.profiler, 8 steps): kernel time "
+        f"{kernel_ms / 8:.3f} ms per step over wall {wall_ms / 8:.3f} ms -> idle "
+        f"{1 - busy:.1%}; matrix multiplies {decode_gemm_ms:.3f} ms per step; top kernels "
+        f"per step: {decode_top}")
+    say(f"[lm] (a) prefill device time {prefill_kernel_ms:.2f} ms (torch.profiler, one call): "
+        f"matrix multiplies {prefill_gemm_ms:.2f} ms, the rest {prefill_kernel_ms - prefill_gemm_ms:.2f}"
+        f" ms; top kernels: {prefill_top}")
+    out.update(decode_gemm_ms=decode_gemm_ms, prefill_kernel_ms=prefill_kernel_ms,
+               prefill_gemm_ms=prefill_gemm_ms)
+    del params, cache, logits, token, tokens, prefill, step
+    torch.cuda.empty_cache()
+
+    # -- (b) full widths at 2 layers, f32, card against CPU --------------------
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 checks")
+    cfg_b = dataclasses.replace(registry.get(LM_ARCH), n_layers=2, window_size=LM_NUM_WINDOW,
+                                param_dtype="float32", activation_dtype="float32")
+    p_card, _ = lm.init(torch.Generator(device=dev).manual_seed(1), cfg_b, dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_card)
+    tok = torch.randint(0, cfg_b.vocab_size, (1, LM_NUM_PROMPT),
+                        generator=torch.Generator().manual_seed(1))
+    s_max_b = LM_NUM_PROMPT + LM_NUM_STEPS
+    step_b = make_decode_step(cfg_b, par)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        l_card, c_card = lm.prefill(p_card, tok.to(dev), cfg_b, par, s_max=s_max_b)
+        l_cpu, c_cpu = lm.prefill(p_cpu, tok, cfg_b, par, s_max=s_max_b)
+        l_naive = l_card.clone()
+        errs = [float((l_card.cpu() - l_cpu).abs().max())]
+        for _ in range(LM_NUM_STEPS):
+            t_cpu = l_cpu[:, -1].argmax(-1)[:, None]
+            require(torch.equal(l_card[:, -1].argmax(-1)[:, None].cpu(), t_cpu),
+                    "f32 full-width greedy ids differ between card and CPU")
+            l_card, c_card = step_b(p_card, t_cpu.to(dev), c_card)
+            l_cpu, c_cpu = step_b(p_cpu, t_cpu, c_cpu)
+            errs.append(float((l_card.cpu() - l_cpu).abs().max()))
+        require(max(errs) <= LM_NUM_TOL, f"f32 full width card vs CPU: {max(errs):.3e}")
+        # -- (d) chunked against naive at (b)'s shape ---------------------------
+        chunk_err = {}
+        for chunk in (1024, 256):
+            par_c = ParallelConfig(attn_impl="chunked", attn_chunk=chunk, remat="none")
+            l_chunk, _ = lm.prefill(p_card, tok.to(dev), cfg_b, par_c, s_max=s_max_b)
+            chunk_err[chunk] = float((l_chunk - l_naive).abs().max())
+            require(chunk_err[chunk] <= LM_CHUNK_TOL,
+                    f"chunked ({chunk}) vs naive prefill: {chunk_err[chunk]:.3e}")
+    out.update(num_err=max(errs), chunk_err=chunk_err)
+    say(f"[lm] (b) {cfg_b.name} full widths at 2 layers (local + global), f32, TF32 off, window "
+        f"{LM_NUM_WINDOW} (this check only), batch 1 x prompt {LM_NUM_PROMPT}: card vs CPU max "
+        f"|dlogit| prefill {errs[0]:.3e}, over {LM_NUM_STEPS} greedy decode steps "
+        f"{max(errs[1:]):.3e} (tol {LM_NUM_TOL:g}); greedy ids equal ({time.perf_counter() - t0:.1f} s)")
+    say("[lm] (d) chunked vs naive prefill logits at (b)'s shape: " + ", ".join(
+        f"chunk {c} {e:.3e}" for c, e in chunk_err.items()) + f" (tol {LM_CHUNK_TOL:g})")
+    del p_card, p_cpu, c_card, c_cpu, l_card, l_cpu, l_naive
+    torch.cuda.empty_cache()
+
+    # -- (c) every smoke config, f32, card against CPU ---------------------------
+    smoke = {}
+    for arch in [a for a in registry.ARCH_IDS if a != "sensor_gsp"]:
+        cfg_s = registry.get_smoke(arch)
+        p_cpu, _ = lm.init(torch.Generator().manual_seed(2), cfg_s, "cpu")
+        p_card = tree_map(lambda t: t.to(dev), p_cpu)
+        g = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg_s.vocab_size, (2, 16), generator=g)
+        extra = None
+        if cfg_s.family in ("vlm", "audio"):
+            extra = 0.02 * torch.randn(2, 8, cfg_s.d_model, generator=g)
+        step_s = make_decode_step(cfg_s, par)
+        worst = 0.0
+        with torch.inference_mode():
+            l_card, c_card = lm.prefill(p_card, toks.to(dev), cfg_s, par, s_max=16 + LM_SMOKE_STEPS,
+                                        extra_embeds=None if extra is None else extra.to(dev))
+            l_cpu, c_cpu = lm.prefill(p_cpu, toks, cfg_s, par, s_max=16 + LM_SMOKE_STEPS,
+                                      extra_embeds=extra)
+            for i in range(LM_SMOKE_STEPS + 1):
+                diff = (l_card.cpu() - l_cpu).abs()
+                worst = max(worst, float(diff.max()))
+                require(bool((diff <= LM_SMOKE_TOL + LM_SMOKE_TOL * l_cpu.abs()).all()),
+                        f"{arch} smoke card vs CPU logits: {float(diff.max()):.3e}")
+                t_cpu = l_cpu[:, -1].argmax(-1)[:, None]
+                require(torch.equal(l_card[:, -1].argmax(-1)[:, None].cpu(), t_cpu),
+                        f"{arch} smoke greedy ids differ between card and CPU")
+                if i < LM_SMOKE_STEPS:
+                    l_card, c_card = step_s(p_card, t_cpu.to(dev), c_card)
+                    l_cpu, c_cpu = step_s(p_cpu, t_cpu, c_cpu)
+        smoke[arch] = worst
+    out["smoke_err"] = smoke
+    say(f"[lm] (c) smoke configs, f32, prefill + {LM_SMOKE_STEPS} greedy decode steps, card vs "
+        f"CPU max |dlogit| (tol {LM_SMOKE_TOL:g} + {LM_SMOKE_TOL:g} x |logit|), greedy ids equal: "
+        + ", ".join(f"{a} {e:.2e}" for a, e in smoke.items()))
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[lm] phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Keep the profiler's CUPTI attached between sessions: with the default
     # teardown after each one, sessions in a short test process on the
@@ -2527,6 +2838,11 @@ def main() -> int:
     gossip_phase(dev)
     require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
             == (u_before, s_before), "the gossip phase launched a bsr kernel")
+
+    # ---- 12. LM serving: Gemma-2 2B at full width, numerics, smoke configs ------
+    lm_phase(dev)
+    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
+            == (u_before, s_before), "the LM serving phase launched a bsr kernel")
     say(smi)
 
     kernels = [

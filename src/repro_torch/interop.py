@@ -1,9 +1,9 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
-The reference draws its graphs from ``jax.random``; these helpers let the
-same drawn graph, Block-ELL operands, coefficients, joint (multi-shift)
-filters and solver problems enter the port, so tests can feed identical
-inputs to both packages.
+The reference draws its graphs and weights from ``jax.random``; these
+helpers let the same drawn graph, Block-ELL operands, coefficients, joint
+(multi-shift) filters, solver problems, LM parameters and LM caches enter
+the port, so tests can feed identical inputs to both packages.
 Nothing here imports the reference: callers pass numpy arrays.
 """
 
@@ -17,6 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.filters import GraphFilter
 from repro_torch.kernels.ref import BlockEll
 from repro_torch.solvers import GramProblem, LassoProblem
+from repro_torch.tree import tree_map
 
 __all__ = [
     "sensor_graph_from_numpy",
@@ -24,6 +25,9 @@ __all__ = [
     "filter_from_numpy",
     "joint_filter_from_numpy",
     "problem_from_numpy",
+    "lm_params_from_numpy",
+    "cache_from_numpy",
+    "cache_to_numpy",
 ]
 
 
@@ -106,3 +110,45 @@ def problem_from_numpy(
         mu_t = float(mu) if np.ndim(mu) == 0 else tensor(mu)
         return LassoProblem(filt=filt, y=tensor(y), mu=mu_t, step=step)
     return GramProblem(filt=filt, b=tensor(b), reg=float(reg))
+
+
+def _tensor_from_numpy(a, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
+    """One leaf: a ``bfloat16`` array (an ``ml_dtypes`` array, recognised
+    by its dtype's name) is carried bit for bit through a ``uint16`` view;
+    ``dtype``, if given, recasts floating leaves."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def lm_params_from_numpy(tree, device: str | torch.device | None = None,
+                         dtype: torch.dtype | None = None):
+    """The port's LM params tree from the reference's, given with numpy
+    leaves (``jax.tree.map(np.asarray, params)``): the same dicts, lists
+    and tuples, each leaf a tensor on ``device`` (default ``cuda``). bf16
+    leaves keep their bits; ``dtype`` recasts every floating leaf."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor_from_numpy(a, dev, dtype), tree)
+
+
+def cache_from_numpy(tree, device: str | torch.device | None = None):
+    """A reference LM cache (numpy leaves) as the port's cache on
+    ``device``; ``len`` and ``pos`` stay int32."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor_from_numpy(a, dev, None), tree)
+
+
+def cache_to_numpy(tree):
+    """The port's cache (or any tree of tensors) with numpy leaves on the
+    host, for comparison with the reference's: bf16 leaves come back as
+    float32 (exactly), everything else in its own dtype."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, tree)

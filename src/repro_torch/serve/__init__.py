@@ -1,7 +1,10 @@
-"""Serving layer of the port: batched engines over ``GraphFilter``.
+"""Serving layer of the port: batched engines over ``GraphFilter`` and
+the language models.
 
 Mirrors ``repro/serve``:
 
+* :class:`ServeEngine` — LM prefill + decode with per-request stop
+  handling (``make_prefill`` / ``make_decode_step`` build its steps).
 * :class:`GraphFilterEngine` — synchronous micro-batcher (fixed panel
   width, caller-driven flushes, eager applies).
 * :class:`AsyncGraphFilterEngine` — continuous batching: ticket-based
@@ -9,15 +12,17 @@ Mirrors ``repro/serve``:
   the apply/solve/frame lanes, per-tenant admission control, and a
   program cache keyed by power-of-two width buckets (one recorded CUDA
   graph per bucket on the card).
-
-Not ported yet: ``ServeEngine``, ``make_decode_step`` and
-``make_prefill``, which serve the language models of ``repro.models``
-and wait for that package's port.
 """
 
 from repro_torch.serve.async_engine import AsyncGraphFilterEngine
 from repro_torch.serve.cache import CompiledPanelCache
-from repro_torch.serve.engine import GraphFilterEngine, lasso_panel_solver
+from repro_torch.serve.engine import (
+    GraphFilterEngine,
+    ServeEngine,
+    lasso_panel_solver,
+    make_decode_step,
+    make_prefill,
+)
 from repro_torch.serve.scheduler import AdmissionError, Scheduler, SchedulerConfig
 from repro_torch.serve.tickets import LANES, Ticket
 
@@ -29,6 +34,9 @@ __all__ = [
     "LANES",
     "Scheduler",
     "SchedulerConfig",
+    "ServeEngine",
     "Ticket",
     "lasso_panel_solver",
+    "make_decode_step",
+    "make_prefill",
 ]

@@ -1,8 +1,16 @@
-"""Batched serving engine for graph filters.
+"""Batched serving engines.
 
-Mirrors ``repro/serve/engine.py`` without ``ServeEngine``,
-``make_decode_step`` and ``make_prefill``, which serve the language
-models of ``repro.models`` (not ported yet).
+Mirrors ``repro/serve/engine.py``. Two workloads share the static-batching
+pattern:
+
+``ServeEngine`` — LM prefill/decode with per-request stop handling over
+``repro_torch.models.lm``. It runs eagerly under ``torch.inference_mode``
+(the reference's ``jax.jit`` has no counterpart yet), keeps the params and
+the cache on its ``device`` (default ``cuda``, raising without it) and
+hands the generated ids back as a host numpy array. Greedy decoding
+(``temperature=0``) gives the reference's tokens; sampling draws from a
+``torch.Generator`` seeded with ``seed``, deterministic per seed but not
+jax's stream.
 
 ``GraphFilterEngine`` — graph-signal filtering as a service: incoming
 (N,)-signal requests are packed into an (N, F) panel and answered by ONE
@@ -37,13 +45,111 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.device import upload
+from repro_torch.device import resolve_device, upload
 from repro_torch.filters import GraphFilter
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig, ParallelConfig
+from repro_torch.models.sharding import ShardingRules
 from repro_torch.solvers import LassoProblem, SolveResult, solve as solve_problem
 from repro_torch.stream import FrameResult, StreamingFilter
 from repro_torch.stream.api import stream_device
+from repro_torch.tree import tree_leaves
 
-__all__ = ["GraphFilterEngine", "lasso_panel_solver"]
+__all__ = [
+    "make_decode_step",
+    "make_prefill",
+    "ServeEngine",
+    "GraphFilterEngine",
+    "lasso_panel_solver",
+]
+
+
+def make_decode_step(
+    cfg: ModelConfig, par: ParallelConfig, rules: ShardingRules | None = None
+) -> Callable:
+    """``decode_step(params, token, cache) -> (logits, cache)``; the cache
+    is updated in place (``lm.decode_step``)."""
+    def decode_step(params, token, cache):
+        return lm.decode_step(params, token, cache, cfg, par, rules)
+
+    return decode_step
+
+
+def make_prefill(
+    cfg: ModelConfig,
+    par: ParallelConfig,
+    rules: ShardingRules | None = None,
+    s_max: int | None = None,
+) -> Callable:
+    """``prefill(params, tokens) -> (last logits, cache)``."""
+    def prefill(params, tokens):
+        return lm.prefill(params, tokens, cfg, par, rules, s_max=s_max)
+
+    return prefill
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Static-slot batched generation on ``device``.
+
+    ``params`` must already be on the engine's device. Without ``eos_id``
+    a generation makes no host sync until its last step: the tokens
+    collect on the device and come back in one copy."""
+
+    cfg: ModelConfig
+    par: ParallelConfig
+    params: Any
+    s_max: int = 128
+    temperature: float = 0.0
+    rules: ShardingRules | None = None
+    device: str | torch.device | None = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        for t in tree_leaves(self.params):
+            if t.device != self.device:
+                raise ValueError(f"params on {t.device}, engine on {self.device}")
+        self._decode = make_decode_step(self.cfg, self.par, self.rules)
+        self._prefill = make_prefill(self.cfg, self.par, self.rules, s_max=self.s_max)
+
+    @torch.inference_mode()
+    def generate(
+        self, prompts: np.ndarray, max_new_tokens: int, eos_id: int | None = None, seed: int = 0
+    ) -> np.ndarray:
+        """prompts: (B, S0) int32 -> (B, max_new_tokens) generated ids."""
+        b = prompts.shape[0]
+        tokens = upload(np.asarray(prompts, np.int64), self.device)
+        logits, cache = self._prefill(self.params, tokens)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        token = self._sample(logits[:, -1], gen)
+        if eos_id is None:
+            out = torch.zeros((b, max_new_tokens), dtype=torch.int64, device=self.device)
+            for t in range(max_new_tokens):
+                out[:, t] = token[:, 0]
+                if t + 1 < max_new_tokens:
+                    logits, cache = self._decode(self.params, token, cache)
+                    token = self._sample(logits[:, 0], gen)
+            return out.cpu().numpy().astype(np.int32)
+        out = np.zeros((b, max_new_tokens), np.int32)
+        done = np.zeros((b,), bool)
+        for t in range(max_new_tokens):
+            out[:, t] = np.where(done, eos_id, token[:, 0].cpu().numpy())
+            done |= out[:, t] == eos_id
+            if done.all():
+                break
+            if t + 1 < max_new_tokens:
+                logits, cache = self._decode(self.params, token, cache)
+                token = self._sample(logits[:, 0], gen)
+        return out
+
+    def _sample(self, logits, gen: torch.Generator):
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)[:, None]
+        # Gumbel-max: argmax(logits / T + G) samples softmax(logits / T).
+        u = torch.rand(logits.shape, generator=gen, device=logits.device)
+        gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(logits.float() / self.temperature + gumbel, dim=-1)[:, None]
+
 
 
 _UNSET = object()

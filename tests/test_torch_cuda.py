@@ -494,3 +494,37 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
                     [back["bf16"], back["e4"], back["e5"], back["f32"], back["i"][0]]):
         assert b.device == a.device and b.dtype == a.dtype
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("arch", ["gemma2_2b", "deepseek_moe_16b", "xlstm_350m",
+                                  "jamba15_large_398b", "internvl2_2b", "musicgen_medium"])
+def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
+    # one smoke arch per family, f32: prefill + 3 greedy decode steps on
+    # the card against the same weights on the CPU, and the card's greedy
+    # engine ids against the CPU engine's
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_map
+
+    cfg = registry.get_smoke(arch)
+    par = ParallelConfig(attn_impl="naive", remat="none")
+    params, _ = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)))
+    want, cache_w = lm.prefill(params, prompt, cfg, par, s_max=16)
+    got, cache_g = lm.prefill(card, prompt.to(cuda_device), cfg, par, s_max=16)
+    for _ in range(4):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        token = want[:, -1:].argmax(-1)
+        assert torch.equal(got[:, -1:].argmax(-1).cpu(), token)
+        want, cache_w = lm.decode_step(params, token, cache_w, cfg, par)
+        got, cache_g = lm.decode_step(card, token.to(cuda_device), cache_g, cfg, par)
+    assert cache_g["pos"].device.type == cuda_device.type and int(cache_g["pos"]) == 13
+    prompts = prompt.numpy().astype(np.int32)
+    np.testing.assert_array_equal(
+        ServeEngine(cfg=cfg, par=par, params=card, s_max=24, device=cuda_device).generate(
+            prompts, max_new_tokens=6),
+        ServeEngine(cfg=cfg, par=par, params=params, s_max=24, device="cpu").generate(
+            prompts, max_new_tokens=6))

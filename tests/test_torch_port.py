@@ -38,7 +38,7 @@ def test_port_imports_neither_jax_nor_reference():
         env={**os.environ, "PYTHONPATH": str(SRC)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 54  # every module of the slices was imported
+    assert int(proc.stdout.strip()) >= 78  # every module of the slices was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -126,6 +126,35 @@ def test_substrate_entry_points_default_to_cuda_and_raise_without_it(monkeypatch
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             restore(tmp_path, 1, {"x": torch.zeros(2)})
     assert checkpoint.restore(tmp_path, 1, {"x": torch.zeros(2)}, device="cpu")["x"].shape == (2,)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    _no_cuda(monkeypatch)
+    from repro_torch import serve_lm
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.serve import ServeEngine
+
+    cfg = registry.get_smoke("gemma2_2b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_lm.main()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", "gemma2_2b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init_cache(cfg, 1, 8, cfg.dtype())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.lm_params_from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.cache_from_numpy({"pos": np.zeros((), np.int32)})
+    params, _ = lm.init(torch.Generator(), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg=cfg, par=ParallelConfig(), params=params)
+    assert ServeEngine(cfg=cfg, par=ParallelConfig(), params=params,
+                       device="cpu").device == torch.device("cpu")
 
 
 def test_resolve_device_names_the_current_card(monkeypatch):
