@@ -160,7 +160,40 @@ Phases, each printing its own lines:
    against CPU: prefill and 4 greedy decode steps, logits within
    ``LM_SMOKE_TOL``, greedy ids equal; (d) at (b)'s shape, chunked
    attention (chunks of 1024, and of 256 to cross chunk boundaries)
-   against naive, prefill logits within the reference's 2e-3.
+   against naive, prefill logits within the reference's 2e-3;
+13. training (``repro_torch.train``, ``repro_torch.data``,
+   ``repro_torch.launch.train``, ``repro_torch.train_lm``), plain torch with
+   no bsr kernel (checked): (a) Gemma-2 2B as published, bf16, random
+   weights from a seeded CUDA generator, through ``make_train_step`` and
+   ``launch.donation.jit_train_step`` (params and AdamW state updated in
+   place) inside ``Trainer`` and ``run_with_restarts`` with a
+   ``CheckpointManager``: sequence 4096, 4 sequences in 4 microbatches,
+   chunked attention (chunks of 1024), remat "block", f32 moments; 2
+   warm-up and 5 timed steps and the Trainer's final checkpoint. Printed:
+   step ms (CUDA events, median and range), tokens/s, the share of the
+   step's operations bound (model FLOPs, and the executed FLOPs with the
+   remat recompute, from the shapes: ``train_work``), one step's device
+   time split into GEMMs and the rest with the top kernels and the idle
+   share (a fresh ``torch.profiler`` session), peak ``memory_allocated``,
+   and the checkpoint's bytes, ``save_async`` and ``wait`` seconds and
+   directory. Held: finite losses, ``memory_allocated`` flat within 1 MB
+   from step 3 on, the params' storage unchanged across steps. (b) its
+   widths at 2 layers in f32 (TF32 off), window 256, batch 1 x 512, chunks
+   of 256, remat "block": loss and every gradient leaf card against CPU,
+   and the params after one AdamW step (within 2 lr: at step 1 every
+   update is +-lr). (c) the ten smoke configs, f32: loss and grads card
+   against CPU, and one train step. (d) the ``100m`` preset of
+   ``repro_torch.train_lm`` on ``StackedMesh(8)``, f32, batch 16 x 256:
+   gossip steps in the serial, bucketed (4 buckets) and delay-slot
+   schedules (2 microbatches), the barrier step and the one-device step on
+   the same batches; ms per step and the gossip sync's share; held:
+   the three schedules within 1e-5, gossip losses within 0.15 |exact| +
+   0.05 of the exact step's. (e) ``python -m repro_torch.launch.train
+   --arch gemma2_2b --smoke --steps 20`` and ``python -m
+   repro_torch.train_lm --preset tiny`` on the card as subprocesses, and a
+   restart: a failure injected at step 3 of 6, ``run_with_restarts`` ends
+   at step 6 after 1 restart, the resumed losses equal an uninterrupted
+   run's within 1e-4.
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -245,6 +278,25 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "gemma2_2b", 4, 4608, 64
 LM_NUM_PROMPT, LM_NUM_WINDOW, LM_NUM_STEPS, LM_NUM_TOL = 1024, 256, 8, 1e-3
 LM_SMOKE_STEPS, LM_SMOKE_TOL, LM_CHUNK_TOL = 4, 1e-4, 2e-3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+# The training phase: (a) Gemma-2 2B at full width, bf16, sequence
+# TRAIN_SEQ (TRAIN_4K's), TRAIN_BATCH sequences in TRAIN_MICRO microbatches,
+# chunked attention in chunks of TRAIN_CHUNK, remat "block", TRAIN_WARMUP
+# warm-up steps and TRAIN_TIMED timed ones, memory flat within
+# TRAIN_MEM_SLACK bytes from step 3 on; (b) its widths at 2 layers in f32,
+# window GRAD_WINDOW, GRAD_SEQ tokens: loss within GRAD_LOSS_TOL, each grad
+# leaf within GRAD_REL_TOL x max|g| + GRAD_ABS_TOL, params after one AdamW
+# step at lr GRAD_LR within 2 lr; (c) the smoke configs within the CPU
+# tests' SMOKE_GRAD_TOL (+ SMOKE_GRAD_REL x max|g|; xLSTM also x |g|);
+# (d) the 100m preset on StackedMesh(GOSSIP_RANKS), batch GOSSIP_TRAIN_BATCH
+# x GOSSIP_TRAIN_SEQ, GOSSIP_TRAIN_STEPS steps per schedule, schedules
+# within SCHEDULE_TOL; (e) a restart at RESTART_FAIL_AT of RESTART_STEPS.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_CHUNK = "gemma2_2b", 4096, 4, 4, 1024
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_MEM_SLACK = 2, 5, 1 << 20
+GRAD_SEQ, GRAD_WINDOW, GRAD_CHUNK, GRAD_LR = 512, 256, 256, 1e-3
+GRAD_LOSS_TOL, GRAD_REL_TOL, GRAD_ABS_TOL = 1e-3, 1e-3, 1e-6
+SMOKE_GRAD_TOL, SMOKE_GRAD_REL = 1e-5, 1e-4
+GOSSIP_TRAIN_BATCH, GOSSIP_TRAIN_SEQ, GOSSIP_TRAIN_STEPS, SCHEDULE_TOL = 16, 256, 3, 1e-5
+RESTART_STEPS, RESTART_FAIL_AT, RESTART_TOL = 6, 3, 1e-4
 
 
 def say(msg: str) -> None:
@@ -2459,6 +2511,422 @@ def lm_phase(dev) -> dict:
     return out
 
 
+def train_work(cfg, params, n_seqs: int, seq: int, chunk: int) -> dict:
+    """Operations of one training step on ``n_seqs`` sequences of ``seq``
+    tokens, from the shapes: every matmul weight (the stacked blocks' and
+    the tied unembedding; the embedding lookup is no matmul) at 6 FLOPs
+    per weight per token, and attention's two contractions (scores and
+    their weighted sum, 4 S_q S_kv d per head per layer forward) over the
+    full square the chunked path computes (``S_kv`` padded to whole
+    chunks), 3x for forward and backward. ``executed`` adds the remat
+    recompute: each group's forward once more (the blocks' weights and the
+    attention forward, not the head)."""
+    from repro_torch.tree import tree_leaves
+
+    tokens = n_seqs * seq
+    block_mm = sum(t.numel() for t in tree_leaves(params["blocks"]) if t.dim() >= 3)
+    head = cfg.vocab_size * cfg.d_model
+    s_kv = -(-seq // chunk) * chunk
+    attn_fwd = 4 * n_seqs * seq * s_kv * cfg.n_heads * cfg.head_dim_ * cfg.n_layers
+    model = 6 * (block_mm + head) * tokens + 3 * attn_fwd
+    return {"tokens": tokens, "model_flops": model,
+            "executed_flops": model + 2 * block_mm * tokens + attn_fwd,
+            "matmul_params": block_mm + head, "attn_fwd_flops": attn_fwd}
+
+
+def _checkpoint_dir(need_bytes: int) -> Path:
+    """A directory on local disk (the temp dir) or in ``/dev/shm``,
+    whichever has room for ``need_bytes`` (with 10 % to spare)."""
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(), "/dev/shm"):
+        if os.path.isdir(base) and shutil.disk_usage(base).free > 1.1 * need_bytes:
+            return Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base))
+    raise RuntimeError(f"no directory holds a {need_bytes / 1e9:.1f} GB checkpoint")
+
+
+def _grad_errors(got, want, rel: float, abs_tol: float, elem_rel: float = 0.0):
+    """Per-leaf max |got - want| of two gradient trees (``got`` moved to
+    ``want``'s device) and whether each is within ``abs_tol + rel
+    max|want| + elem_rel |want|``; returns ``(worst, all_ok)``."""
+    from repro_torch.tree import tree_leaves
+
+    worst, ok = 0.0, True
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().to(b.device).float(), b.detach().float()
+        diff = (a - b).abs()
+        tol = abs_tol + rel * float(b.abs().max()) + elem_rel * b.abs()
+        ok &= bool((diff <= tol).all())
+        worst = max(worst, float(diff.max()))
+    return worst, ok
+
+
+def train_phase(dev) -> dict:
+    """Phase 13: training on the card (see the module docstring). Plain
+    torch: no bsr kernel runs here (the caller checks)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import train
+    from repro_torch.checkpoint import CheckpointManager, latest_step, restore
+    from repro_torch.configs import registry
+    from repro_torch.core import gossip
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.donation import jit_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.runtime import FailureInjector, run_with_restarts
+    from repro_torch.train_lm import PRESETS, preset_config
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    # -- (a) Gemma-2 2B, full width, through the Trainer ----------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = registry.get(TRAIN_ARCH)
+    require((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.param_dtype, cfg.window_size)
+            == (26, 2304, 256000, "bfloat16", 4096), f"not Gemma-2 2B's published config: {cfg}")
+    par = ParallelConfig(attn_impl="chunked", attn_chunk=TRAIN_CHUNK, remat="block",
+                         microbatches=TRAIN_MICRO)
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    optc = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
+    step_fn = jit_train_step(train.make_train_step(cfg, par, optc))
+    timing, mem, ptrs = [], [], []
+
+    def timed_step(params, opt, batch):
+        start, stop = events()
+        start.record()
+        result = step_fn(params, opt, batch)
+        stop.record()
+        timing.append((start, stop))
+        mem.append(torch.cuda.memory_allocated(dev))
+        ptrs.append([t.data_ptr() for t in tree_leaves(result[0])])
+        return result
+
+    class TimedCheckpoints(CheckpointManager):
+        save_s = wait_s = 0.0
+
+        def save_async(self, step, tree):
+            t0 = time.perf_counter()
+            super().save_async(step, tree)
+            self.save_s = time.perf_counter() - t0
+
+        def wait(self):
+            t0 = time.perf_counter()
+            super().wait()
+            self.wait_s = time.perf_counter() - t0
+
+    trainers = []
+
+    def make_trainer(start_step):
+        require(start_step == 0, f"the full-width run restarted from step {start_step}")
+        params, _ = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+        trainers.append(train.Trainer(train_step=timed_step, pipeline=pipe, ckpt=mgr,
+                                      params=params, opt_state=init_opt_state(params, optc),
+                                      ckpt_every=n_steps + 1))
+        return trainers[-1]
+
+    abstract, _ = lm.abstract_init(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(abstract))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(abstract))
+    ckpt_bytes = param_bytes + 2 * 4 * n_params
+    ckpt_dir = _checkpoint_dir(ckpt_bytes)
+    mgr = TimedCheckpoints(ckpt_dir, keep=1)
+    try:
+        t0 = time.perf_counter()
+        result = run_with_restarts(make_trainer, n_steps, latest_step_fn=lambda: latest_step(ckpt_dir))
+        run_s = time.perf_counter() - t0
+        written = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+        free_after = shutil.disk_usage(ckpt_dir).free
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = result["losses"]
+    step_ms = [a.elapsed_time(b) for a, b in timing]
+    timed = step_ms[TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    require(result["final_step"] == n_steps and result["restarts"] == 0,
+            f"full-width run ended at {result['final_step']} after {result['restarts']} restarts")
+    require(all(math.isfinite(x) for x in losses), f"non-finite full-width losses {losses}")
+    drift = max(mem[2:]) - min(mem[2:])
+    require(drift <= TRAIN_MEM_SLACK, f"memory_allocated moved {drift} B over steps 3-{n_steps}")
+    require(all(p == ptrs[0] for p in ptrs), "the donated step moved a parameter's storage")
+    trainer = trainers[-1]
+    work = train_work(cfg, trainer.params, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK)
+    bound_ms = work["model_flops"] / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = 2 * ckpt_bytes / HBM_BYTES_PER_S * 1e3  # read and write params and moments
+    batch = pipe.batch_at(n_steps)
+    window = events()
+
+    def one_step():
+        window[0].record()
+        trainer.params, trainer.opt_state, _ = step_fn(trainer.params, trainer.opt_state, batch)
+        window[1].record()
+
+    evs = profiled_kernels(one_step)
+    wall_ms = window[0].elapsed_time(window[1])
+    kernel_ms, gemm_ms, top = kernel_split(evs)
+    out.update(n_params=n_params, step_ms=step_ms, step_median_ms=med,
+               tokens_per_s=work["tokens"] / med * 1e3, bound_ms=bound_ms,
+               model_flops=work["model_flops"], executed_flops=work["executed_flops"],
+               peak_gb=peak / 1e9, mem_drift=drift, ckpt_bytes=written,
+               save_async_s=mgr.save_s, wait_s=mgr.wait_s, kernel_ms=kernel_ms,
+               gemm_ms=gemm_ms, profiled_wall_ms=wall_ms, idle=1 - kernel_ms / med,
+               losses=losses)
+    say(f"[train] (a) {cfg.name}: {n_params / 1e9:.4f} B params bf16, AdamW f32 moments; "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens per step in {TRAIN_MICRO} microbatches, chunked "
+        f"attention ({TRAIN_CHUNK}), remat block, donated (in-place) step; "
+        f"{n_steps} steps through Trainer + run_with_restarts in {run_s:.1f} s; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + " (finite)")
+    say(f"[train] (a) step {med:.1f} ms (CUDA events, median of {len(timed)} after "
+        f"{TRAIN_WARMUP} warm-up; min {min(timed):.1f} max {max(timed):.1f}; warm-up "
+        + " ".join(f"{x:.1f}" for x in step_ms[:TRAIN_WARMUP]) + f") -> "
+        f"{work['tokens'] / med * 1e3:.0f} tokens/s")
+    say(f"[train] (a) operations: model {work['model_flops'] / 1e12:.1f} TFLOP per step "
+        f"(6 x {work['matmul_params'] / 1e9:.4f} B matmul weights x {work['tokens']} tokens + "
+        f"3 x {work['attn_fwd_flops'] / 1e12:.2f} TFLOP attention forward), executed with the "
+        f"remat recompute {work['executed_flops'] / 1e12:.1f} TFLOP; bound {bound_ms:.1f} ms by "
+        f"operations at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 (bytes {bytes_ms:.1f} ms) -> "
+        f"{bound_ms / med:.1%} of the bound; executed at "
+        f"{work['executed_flops'] / med / 1e9:.0f} TFLOP/s")
+    say(f"[train] (a) one step under torch.profiler (fresh session): device time "
+        f"{kernel_ms:.1f} ms against the median step {med:.1f} ms -> idle "
+        f"{1 - kernel_ms / med:.1%} (against the profiled step's own {wall_ms:.1f} ms: "
+        f"{1 - kernel_ms / wall_ms:.1%}); "
+        f"matrix multiplies {gemm_ms:.1f} ms, the rest {kernel_ms - gemm_ms:.1f} ms; top "
+        f"kernels: {top}")
+    say(f"[train] (a) memory_allocated: peak {peak / 1e9:.2f} GB ({(peak - base_mem) / 1e9:.2f} "
+        f"above the phase's start); after each step "
+        + " ".join(f"{m / 1e9:.4f}" for m in mem) + f" GB; drift over steps 3-{n_steps} "
+        f"{drift} B (limit {TRAIN_MEM_SLACK}); parameter storage unchanged over {len(ptrs)} steps")
+    say(f"[train] (a) checkpoint at step {n_steps}: {written / 1e9:.2f} GB written to "
+        f"{ckpt_dir.parent} ({free_after / 1e9:.0f} GB free after; deleted); save_async "
+        f"{mgr.save_s:.2f} s (host copy), wait {mgr.wait_s:.2f} s (the write)")
+    del trainers, trainer, make_trainer, abstract, batch
+    torch.cuda.empty_cache()
+
+    # -- (b) full widths at 2 layers, f32, card against CPU ----------------------
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 checks")
+    t0 = time.perf_counter()
+    cfg_b = dataclasses.replace(cfg, n_layers=2, window_size=GRAD_WINDOW,
+                                param_dtype="float32", activation_dtype="float32")
+    par_b = ParallelConfig(attn_impl="chunked", attn_chunk=GRAD_CHUNK, remat="block")
+    p_card, _ = lm.init(torch.Generator(device=dev).manual_seed(1), cfg_b, dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_card)
+    b_cpu = SyntheticTokenPipeline(cfg_b.vocab_size, GRAD_SEQ, 1, seed=1, device="cpu").batch_at(0)
+    b_card = tree_map(lambda t: t.to(dev), b_cpu)
+
+    def loss_b(p, b):
+        return lm.loss_fn(p, b, cfg_b, par_b)
+
+    l_card, _, g_card = train.value_and_grad(loss_b, p_card, b_card)
+    l_cpu, _, g_cpu = train.value_and_grad(loss_b, p_cpu, b_cpu)
+    dl = abs(float(l_card) - float(l_cpu))
+    g_err, g_ok = _grad_errors(g_card, g_cpu, GRAD_REL_TOL, GRAD_ABS_TOL)
+    require(dl <= GRAD_LOSS_TOL, f"(b) loss card vs CPU {dl:.3e}")
+    require(g_ok, f"(b) a gradient leaf card vs CPU past {GRAD_REL_TOL:g} max|g| (max {g_err:.3e})")
+    optc_b = AdamWConfig(peak_lr=GRAD_LR, warmup_steps=1, total_steps=10)
+    new_card, _, _ = adamw_update(p_card, g_card, init_opt_state(p_card, optc_b), optc_b)
+    new_cpu, _, _ = adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, optc_b), optc_b)
+    p_err, p_ok = _grad_errors(new_card, new_cpu, 0.0, 2 * GRAD_LR + GRAD_ABS_TOL)
+    require(p_ok, f"(b) params after one AdamW step differ by {p_err:.3e} > 2 lr")
+    out.update(grad_loss_err=dl, grad_err=g_err, grad_param_err=p_err)
+    say(f"[train] (b) {cfg_b.name} widths at 2 layers, f32, TF32 off, window {GRAD_WINDOW}, "
+        f"batch 1 x {GRAD_SEQ}, chunks of {GRAD_CHUNK}, remat block: card vs CPU |dloss| "
+        f"{dl:.3e} (tol {GRAD_LOSS_TOL:g}), max |dgrad| {g_err:.3e} (every leaf within "
+        f"{GRAD_REL_TOL:g} max|g| + {GRAD_ABS_TOL:g}), params after one AdamW step at lr "
+        f"{GRAD_LR:g} {p_err:.3e} (tol 2 lr) ({time.perf_counter() - t0:.1f} s)")
+    del p_card, p_cpu, g_card, g_cpu, new_card, new_cpu
+    torch.cuda.empty_cache()
+
+    # -- (c) every smoke config, f32, card against CPU ---------------------------
+    smoke = {}
+    par_s = ParallelConfig(attn_impl="naive", remat="none")
+    optc_s = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in [a for a in registry.ARCH_IDS if a != "sensor_gsp"]:
+        cfg_s = registry.get_smoke(arch)
+        p_cpu, _ = lm.init(torch.Generator().manual_seed(2), cfg_s, "cpu")
+        p_card = tree_map(lambda t: t.to(dev), p_cpu)
+        pipe_s = SyntheticTokenPipeline(cfg_s.vocab_size, 32, 2, seed=3, device="cpu",
+                                        frontend_positions=8 if cfg_s.family in ("vlm", "audio")
+                                        else 0, d_model=cfg_s.d_model)
+        b_cpu = pipe_s.batch_at(0)
+        b_card = tree_map(lambda t: t.to(dev), b_cpu)
+
+        def loss_s(p, b, cfg_s=cfg_s):
+            return lm.loss_fn(p, b, cfg_s, par_s)
+
+        l_card, _, g_card = train.value_and_grad(loss_s, p_card, b_card)
+        l_cpu, _, g_cpu = train.value_and_grad(loss_s, p_cpu, b_cpu)
+        dl = abs(float(l_card) - float(l_cpu))
+        g_err, g_ok = _grad_errors(g_card, g_cpu, SMOKE_GRAD_REL, SMOKE_GRAD_TOL,
+                                   SMOKE_GRAD_REL if arch == "xlstm_350m" else 0.0)
+        require(dl <= SMOKE_GRAD_TOL, f"(c) {arch} loss card vs CPU {dl:.3e}")
+        require(g_ok, f"(c) {arch} grads card vs CPU (max {g_err:.3e})")
+        step_s = train.make_train_step(cfg_s, par_s, optc_s)
+        new_card, _, m_card = step_s(p_card, init_opt_state(p_card, optc_s), b_card, donate=True)
+        new_cpu, _, _ = step_s(p_cpu, init_opt_state(p_cpu, optc_s), b_cpu, donate=True)
+        p_err, p_ok = _grad_errors(new_card, new_cpu, 0.0, 2e-3 + GRAD_ABS_TOL)
+        require(p_ok and math.isfinite(float(m_card["loss"])),
+                f"(c) {arch} params after one train step differ by {p_err:.3e} > 2 lr")
+        smoke[arch] = (dl, g_err, p_err)
+    out["smoke"] = smoke
+    say(f"[train] (c) smoke configs, f32, card vs CPU |dloss| (tol {SMOKE_GRAD_TOL:g}) / max "
+        f"|dgrad| (tol {SMOKE_GRAD_TOL:g} + {SMOKE_GRAD_REL:g} max|g|, xLSTM also + "
+        f"{SMOKE_GRAD_REL:g} |g|) / params after one donated train step (tol 2 lr): "
+        + ", ".join(f"{a} {e[0]:.1e}/{e[1]:.1e}/{e[2]:.1e}" for a, e in smoke.items()))
+
+    # -- (d) the gossip path: the 100m preset on StackedMesh(8) ----------------------
+    t0 = time.perf_counter()
+    cfg_g = preset_config("100m")
+    optc_g = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=PRESETS["100m"]["steps"])
+    pipe_g = SyntheticTokenPipeline(cfg_g.vocab_size, GOSSIP_TRAIN_SEQ, GOSSIP_TRAIN_BATCH,
+                                    device=dev)
+    mesh = StackedMesh(GOSSIP_RANKS, dev)
+    params_g, _ = lm.init(torch.Generator(device=dev).manual_seed(0), cfg_g, dev)
+    n_g = sum(t.numel() for t in tree_leaves(params_g))
+    order = gossip.required_order(GOSSIP_RANKS, 1e-3)
+    batches = [pipe_g.batch_at(s) for s in range(GOSSIP_TRAIN_STEPS)]
+
+    def par_g(**kw):
+        return ParallelConfig(attn_impl="naive", remat="none", microbatches=2,
+                              grad_sync="gossip", gossip_order=order, fsdp=False, **kw)
+
+    def run(step, stacked):
+        p = tree_map(torch.clone, params_g)
+        o = init_opt_state(p, optc_g)
+        if stacked:
+            p, o = train.replicate(p, GOSSIP_RANKS), train.replicate(o, GOSSIP_RANKS)
+        losses, ms = [], []
+        for b in batches:
+            start, stop = events()
+            start.record()
+            p, o, m = step(p, o, b)
+            stop.record()
+            losses.append(float(m["loss"]))
+            ms.append(start.elapsed_time(stop))
+        return losses, ms
+
+    runs = {}
+    for name, kw in (("serial", dict(gossip_buckets=1, gossip_overlap=False)),
+                     ("bucketed", dict(gossip_buckets=4, gossip_overlap=False)),
+                     ("delay-slot", dict(gossip_buckets=4, gossip_overlap=True))):
+        runs[name] = run(jit_train_step(train.make_gossip_train_step(
+            cfg_g, par_g(**kw), optc_g, None, mesh)), True)
+    runs["barrier"] = run(jit_train_step(train.make_barrier_train_step(
+        cfg_g, par_g(), optc_g, None, mesh)), True)
+    runs["exact"] = run(jit_train_step(train.make_train_step(cfg_g, par_g(), optc_g)), False)
+    sched = max(abs(a - b) for name in ("bucketed", "delay-slot")
+                for a, b in zip(runs[name][0], runs["serial"][0]))
+    require(sched <= SCHEDULE_TOL, f"(d) gossip schedules differ by {sched:.3e}")
+    for name in ("serial", "bucketed", "delay-slot", "barrier"):
+        for lg, le in zip(runs[name][0], runs["exact"][0]):
+            require(abs(lg - le) < 0.15 * abs(le) + 0.05, f"(d) {name} loss {lg} vs exact {le}")
+    # One bucketed sync of a gradient of this model per rank, timed alone.
+    grads = train.replicate(tree_map(torch.randn_like, params_g), GOSSIP_RANKS)
+    plan = train.build_bucket_plan(params_g, 4)
+
+    def one_sync():
+        flats = train.pack_buckets(plan, grads)
+        train.unpack_buckets(plan, [gossip.chebyshev_gossip_mean(f, mesh, order=order)
+                                    for f in flats])
+
+    sync_ms = median_ms(one_sync, reps=3, warmup=1)
+    out["gossip"] = dict(runs)
+    out["sync_ms"] = sync_ms
+    say(f"[train] (d) {cfg_g.name} ({n_g / 1e6:.1f} M params per rank, f32) on "
+        f"StackedMesh({GOSSIP_RANKS}), batch {GOSSIP_TRAIN_BATCH} x {GOSSIP_TRAIN_SEQ}, 2 "
+        f"microbatches, gossip order {order}: losses over {GOSSIP_TRAIN_STEPS} steps "
+        + "; ".join(f"{k} " + " ".join(f"{x:.5f}" for x in v[0]) for k, v in runs.items())
+        + f"; schedules agree within {sched:.2e} (tol {SCHEDULE_TOL:g}); gossip tracks exact")
+    say("[train] (d) ms per step (CUDA events; first step includes warm-up): "
+        + "; ".join(f"{k} " + " ".join(f"{x:.1f}" for x in v[1]) for k, v in runs.items())
+        + f"; one bucketed sync (K 4) {sync_ms:.1f} ms -> {sync_ms / runs['bucketed'][1][-1]:.1%} "
+        f"of a bucketed step, {2 * sync_ms / runs['delay-slot'][1][-1]:.1%} of a delay-slot step "
+        f"(2 syncs) ({time.perf_counter() - t0:.1f} s)")
+    del params_g, grads, runs, mesh
+    torch.cuda.empty_cache()
+
+    # -- (e) the entry points, and a restart ------------------------------------------
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        runs_e = {}
+        for name, cmd in (("launch.train", ["-m", "repro_torch.launch.train", "--arch",
+                                            "gemma2_2b", "--smoke", "--steps", "20",
+                                            "--ckpt-dir", os.path.join(tmp, "launch"), "--device", str(dev)]),
+                          ("train_lm", ["-m", "repro_torch.train_lm", "--preset", "tiny",
+                                        "--device", str(dev)])):
+            proc = subprocess.run([sys.executable, *cmd], capture_output=True, text=True,
+                                  timeout=300, env={**env, "TMPDIR": tmp}, cwd=ROOT)
+            require(proc.returncode == 0, f"(e) {name} failed: {proc.stderr[-2000:]}")
+            rec = json.loads(proc.stdout[proc.stdout.index("{"):proc.stdout.rindex("}") + 1])
+            runs_e[name] = rec
+        require(runs_e["launch.train"]["steps"] == 20 and runs_e["launch.train"]["restarts"] == 0
+                and math.isfinite(runs_e["launch.train"]["loss_last5"]), "(e) launcher record")
+        require(runs_e["train_lm"]["steps"] == 3, "(e) train_lm record")
+
+        cfg_r = registry.get_smoke("gemma2_2b")
+        optc_r = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=RESTART_STEPS)
+        pipe_r = SyntheticTokenPipeline(cfg_r.vocab_size, 32, 4, device=dev)
+        step_r = jit_train_step(train.make_train_step(cfg_r, ParallelConfig(
+            attn_impl="naive", remat="none"), optc_r))
+
+        def restart_run(name, fail_at):
+            d = os.path.join(tmp, name)
+            mgr_r = CheckpointManager(d, keep=3)
+            injector = FailureInjector(fail_at)
+            made = []
+
+            def make(start):
+                params, _ = lm.init(torch.Generator(device=dev).manual_seed(0), cfg_r, dev)
+                opt = init_opt_state(params, optc_r)
+                if start:
+                    snap = restore(d, start, {"params": params, "opt": opt}, device=dev)
+                    params, opt = snap["params"], snap["opt"]
+                made.append(start)
+                return train.Trainer(train_step=step_r, pipeline=pipe_r, ckpt=mgr_r,
+                                     params=params, opt_state=opt, ckpt_every=2,
+                                     failure_injector=injector)
+
+            res = run_with_restarts(make, RESTART_STEPS, latest_step_fn=lambda: latest_step(d))
+            return res, made
+
+        whole, _ = restart_run("whole", ())
+        resumed, starts = restart_run("resumed", (RESTART_FAIL_AT,))
+        require(resumed["final_step"] == RESTART_STEPS and resumed["restarts"] == 1,
+                f"(e) restart ended at {resumed['final_step']} after {resumed['restarts']}")
+        tail = whole["losses"][starts[-1]:]
+        r_err = max(abs(a - b) for a, b in zip(resumed["losses"], tail))
+        require(len(tail) == len(resumed["losses"]) and r_err <= RESTART_TOL,
+                f"(e) resumed losses differ from the uninterrupted run's by {r_err:.3e}")
+    out.update(entry=runs_e, restart_err=r_err)
+    say(f"[train] (e) python -m repro_torch.launch.train --arch gemma2_2b --smoke --steps 20: "
+        f"{runs_e['launch.train']}; python -m repro_torch.train_lm --preset tiny: "
+        f"{ {k: v for k, v in runs_e['train_lm'].items() if k != 'ckpt_dir'} }")
+    say(f"[train] (e) restart: failure at step {RESTART_FAIL_AT} of {RESTART_STEPS}, resumed from "
+        f"step {starts[-1]}, final step {resumed['final_step']}, restarts {resumed['restarts']}; "
+        f"resumed losses vs uninterrupted max |d| {r_err:.2e} (tol {RESTART_TOL:g}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[train] phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Keep the profiler's CUPTI attached between sessions: with the default
     # teardown after each one, sessions in a short test process on the
@@ -2843,6 +3311,11 @@ def main() -> int:
     lm_phase(dev)
     require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
             == (u_before, s_before), "the LM serving phase launched a bsr kernel")
+
+    # ---- 13. training: Gemma-2 2B at full width, numerics, gossip, entry points --
+    train_phase(dev)
+    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
+            == (u_before, s_before), "the training phase launched a bsr kernel")
     say(smi)
 
     kernels = [

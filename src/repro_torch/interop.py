@@ -2,7 +2,8 @@
 
 The reference draws its graphs and weights from ``jax.random``; these
 helpers let the same drawn graph, Block-ELL operands, coefficients, joint
-(multi-shift) filters, solver problems, LM parameters and LM caches enter
+(multi-shift) filters, solver problems, LM parameters, optimiser states,
+batches and LM caches enter
 the port, so tests can feed identical inputs to both packages.
 Nothing here imports the reference: callers pass numpy arrays.
 """
@@ -26,6 +27,8 @@ __all__ = [
     "joint_filter_from_numpy",
     "problem_from_numpy",
     "lm_params_from_numpy",
+    "opt_state_from_numpy",
+    "batch_from_numpy",
     "cache_from_numpy",
     "cache_to_numpy",
 ]
@@ -134,6 +137,21 @@ def lm_params_from_numpy(tree, device: str | torch.device | None = None,
     leaves keep their bits; ``dtype`` recasts every floating leaf."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor_from_numpy(a, dev, dtype), tree)
+
+
+def opt_state_from_numpy(tree, device: str | torch.device | None = None):
+    """A reference AdamW state (``{"m", "v", "step"}``, numpy leaves) as
+    the port's on ``device``: bf16 moments keep their bits, ``step`` stays
+    int32."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor_from_numpy(a, dev, None), tree)
+
+
+def batch_from_numpy(batch: dict, device: str | torch.device | None = None) -> dict:
+    """A reference batch (``tokens``, ``labels``, maybe ``extra_embeds``;
+    numpy arrays) as tensors on ``device``, dtypes kept."""
+    dev = resolve_device(device)
+    return {k: _tensor_from_numpy(v, dev, None) for k, v in batch.items()}
 
 
 def cache_from_numpy(tree, device: str | torch.device | None = None):

@@ -10,14 +10,26 @@ The functions work on a tree of tensors with the reference's structure:
 ``embed``, a ``prefix`` list, a ``blocks`` tuple (one dict per pattern
 entry, every leaf stacked over ``repeats`` on a leading axis) and
 ``final_norm``; ``repro_torch.tree`` flattens it in jax's leaf order. The
-reference's ``lax.scan`` over groups is a Python loop over views of the
-stacked leaves; ``remat`` has no effect (there is no backward pass here).
+reference's ``lax.scan`` over groups is a Python loop over the repeats:
+each stacked param leaf is unbound once per call (``torch.unbind``, whose
+backward stacks the groups' gradients into one tensor; a per-group
+``t[r]`` would make every group's backward write a zero tensor the size
+of the whole stack). Cache leaves stay per-group ``t[r]`` views, so a
+decode step's writes land in the stacked cache.
+
+``loss_fn`` is differentiable with respect to the param leaves (torch
+autograd; ``repro_torch.train`` takes gradients with
+``torch.autograd.grad``). ``par.remat == "block"`` checkpoints each
+repeat group while autograd records
+(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``), as
+the reference's ``jax.checkpoint(group)`` does: a group's activations are
+recomputed in its backward instead of being kept.
 
 Entry points:
   init(gen, cfg, device)          -> (params, logical specs)
   abstract_init(cfg)              -> (meta-device params, specs)  [shapes only]
   forward(params, tokens, ...)    -> (logits, aux)               [train/prefill]
-  loss_fn(params, batch, ...)     -> (loss, metrics)              [forward only]
+  loss_fn(params, batch, ...)     -> (loss, metrics)              [differentiable]
   init_cache / prefill / decode_step                              [serving]
 
 ``decode_step`` updates the cache IN PLACE and returns it: the token's
@@ -33,6 +45,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -41,7 +54,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig, ParallelConfig
 from repro_torch.models.sharding import ShardingRules, constrain, stack_specs
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["init", "abstract_init", "forward", "loss_fn", "init_cache",
            "decode_step", "prefill", "cache_logical_specs"]
@@ -137,10 +150,13 @@ def _make_block_cache(cfg, kind: str, batch: int, s_max: int, dtype, device, lea
 
 
 def _groups(cfg: ModelConfig, params, cache=None):
-    """Per repeat: (params group, cache group or None) as views of the
-    stacked leaves (writes into a cache view land in the stacked cache)."""
+    """Per repeat: (params group, cache group or None). Param leaves are
+    unbound once (one stacked gradient per leaf); cache groups are ``t[r]``
+    views (writes into them land in the stacked cache)."""
+    leaves, treedef = tree_flatten(params["blocks"])
+    per_leaf = [torch.unbind(t, 0) for t in leaves]
     for r in range(cfg.repeats):
-        p_group = tree_map(lambda t: t[r], params["blocks"])
+        p_group = treedef.unflatten([u[r] for u in per_leaf])
         c_group = None if cache is None else tree_map(lambda t: t[r], cache["blocks"])
         yield p_group, c_group
 
@@ -231,10 +247,20 @@ def forward(
                                  positions)
         aux_total = aux_total + aux
 
-    for p_group, _ in _groups(cfg, params):
+    def group(x, p_group):
+        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (kind, ffn_kind) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
             x, _, aux = _apply_block(p_group[i], x, cfg, par, rules, kind, ffn_kind, positions)
-            aux_total = aux_total + aux
+            aux_g = aux_g + aux
+        return x, aux_g
+
+    remat = par.remat == "block" and torch.is_grad_enabled()
+    for p_group, _ in _groups(cfg, params):
+        if remat:
+            x, aux_g = checkpoint(group, x, p_group, use_reentrant=False)
+        else:
+            x, aux_g = group(x, p_group)
+        aux_total = aux_total + aux_g
 
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if last_only:

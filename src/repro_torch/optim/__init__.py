@@ -3,6 +3,7 @@
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_update,
+    adamw_update_,
     clip_by_global_norm,
     cosine_schedule,
     init_opt_state,
@@ -10,6 +11,6 @@ from repro_torch.optim.adamw import (
 )
 
 __all__ = [
-    "AdamWConfig", "adamw_update", "clip_by_global_norm",
+    "AdamWConfig", "adamw_update", "adamw_update_", "clip_by_global_norm",
     "cosine_schedule", "init_opt_state", "opt_state_specs",
 ]

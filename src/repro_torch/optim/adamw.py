@@ -1,7 +1,10 @@
 """AdamW with optional reduced-precision moments.
 
-Mirrors ``repro/optim/adamw.py``, functionally: every call returns new
-tensors and leaves its arguments as they were. All math is in float32;
+Mirrors ``repro/optim/adamw.py``. ``adamw_update`` is functional: it
+returns new tensors and leaves its arguments as they were.
+``adamw_update_`` computes the same numbers (the same per-leaf function)
+and writes them into the arguments, leaf by leaf: the donated train
+step's optimiser (``launch.donation``). All math is in float32;
 the moments are stored in ``moment_dtype`` (``"float32"`` or
 ``"bfloat16"``, which halves optimiser memory); ``step`` is an int32 0-d
 tensor on the parameters' device. Trees are flattened as jax does
@@ -19,7 +22,7 @@ import torch
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "init_opt_state", "opt_state_specs",
-           "adamw_update", "cosine_schedule", "clip_by_global_norm"]
+           "adamw_update", "adamw_update_", "cosine_schedule", "clip_by_global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,39 +67,111 @@ def opt_state_specs(param_specs):
     return {"m": param_specs, "v": param_specs, "step": ()}
 
 
+def _lead_shape(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``x`` (shaped like the rank axes) with trailing unit axes up to
+    ``ndim``, so it broadcasts over a leaf's own axes."""
+    return x.reshape(tuple(x.shape) + (1,) * (ndim - x.dim()))
+
+
+def _global_norm(leaves, lead: int) -> torch.Tensor:
+    """2-norm of all ``leaves`` together, per index of the ``lead``
+    leading (rank) axes: shape ``leaves[0].shape[:lead]``."""
+    def sq(g):
+        s = torch.square(g.to(torch.float32))
+        return torch.sum(s) if lead == 0 else torch.sum(s.reshape(s.shape[:lead] + (-1,)), -1)
+
+    return torch.sqrt(sum(sq(g) for g in leaves))
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale ``grads`` so their global 2-norm is at most ``max_norm``;
     returns ``(grads, norm)``."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    gn = _global_norm(tree_leaves(grads), 0)
+    scale = _clip_scale(gn, max_norm)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
 
 
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
-    """One AdamW step. Returns ``(params, state, metrics)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state["step"] + 1
-    lr = cosine_schedule(cfg, step)
+def _leaf_update(p, g, m, v, scale, lr, b1c, b2c, cfg: AdamWConfig):
+    """One leaf's AdamW update: ``(p_new, m_new, v_new)``, new tensors in
+    the dtypes of ``p``, ``m`` and ``v``. The f32 temporaries are updated
+    in place where the expression allows (the same operations in the same
+    order as ``b1 m + (1 - b1) g`` etc., so the same rounding), so a leaf
+    keeps few of them alive at once."""
     sf = torch.float32
-    step_f = step.to(sf)
+    nd = p.dim()
+    gf = (g * _lead_shape(scale, nd)).to(g.dtype).to(sf)  # clipped, as clip_by_global_norm
+    m_new = m.to(sf) * cfg.b1
+    m_new += gf * (1 - cfg.b1)
+    v_new = v.to(sf) * cfg.b2
+    gf = torch.square(gf)
+    gf *= 1 - cfg.b2
+    v_new += gf
+    del gf
+    den = v_new / _lead_shape(b2c, nd)
+    den.sqrt_()
+    den += cfg.eps
+    delta = m_new / _lead_shape(b1c, nd)
+    delta /= den
+    del den
+    pf = p.to(sf)
+    delta += pf * cfg.weight_decay
+    delta *= _lead_shape(lr, nd)
+    p_new = (pf - delta).to(p.dtype)
+    mdt = getattr(torch, cfg.moment_dtype)
+    return p_new, m_new.to(mdt), v_new.to(mdt)
+
+
+def _hyper(grads, state: dict, cfg: AdamWConfig, step: torch.Tensor):
+    """The per-step scalars (per rank on a stacked state, whose ``step``
+    carries the rank axes): the clip scale, the norm, lr and the two bias
+    corrections."""
+    gn = _global_norm(tree_leaves(grads), state["step"].dim())
+    lr = cosine_schedule(cfg, step)
+    step_f = step.to(torch.float32)
     b1c = 1.0 - torch.pow(cfg.b1, step_f)
     b2c = 1.0 - torch.pow(cfg.b2, step_f)
-    mdt = getattr(torch, cfg.moment_dtype)
+    return _clip_scale(gn, cfg.clip_norm), gn, lr, b1c, b2c
 
-    def upd(p, g, m, v):
-        gf = g.to(sf)
-        m_new = cfg.b1 * m.to(sf) + (1 - cfg.b1) * gf
-        v_new = cfg.b2 * v.to(sf) + (1 - cfg.b2) * torch.square(gf)
-        mhat = m_new / b1c
-        vhat = v_new / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        p_new = p.to(sf) - lr * (delta + cfg.weight_decay * p.to(sf))
-        return p_new.to(p.dtype), m_new.to(mdt), v_new.to(mdt)
 
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
+    """One AdamW step. Returns ``(params, state, metrics)``; the arguments
+    are left as they were.
+
+    A state whose ``step`` has leading (rank) axes, as ``train.replicate``
+    makes it, updates every rank with its own clip norm, as the
+    reference's ``shard_map`` ranks do; the metrics then carry those axes.
+    """
+    step = state["step"] + 1
+    scale, gn, lr, b1c, b2c = _hyper(grads, state, cfg, step)
     flat_p, tdef = tree_flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    out = [_leaf_update(p, g, m, v, scale, lr, b1c, b2c, cfg) for p, g, m, v in zip(
         flat_p, tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]))]
     new_p = tdef.unflatten([o[0] for o in out])
     new_m = tdef.unflatten([o[1] for o in out])
     new_v = tdef.unflatten([o[2] for o in out])
-    return new_p, {"m": new_m, "v": new_v, "step": step}, {"lr": lr, "grad_norm": gnorm}
+    return new_p, {"m": new_m, "v": new_v, "step": step}, {"lr": lr, "grad_norm": gn}
+
+
+@torch.no_grad()
+def adamw_update_(params, grads, state: dict, cfg: AdamWConfig):
+    """:func:`adamw_update` IN PLACE: the same numbers, written into the
+    leaves of ``params`` and ``state`` leaf by leaf, so only one leaf's
+    f32 temporaries are alive at a time (the donated train step's
+    optimiser: at Gemma-2 2B an out-of-place step would hold a second
+    params-and-moments copy, ~26 GB). Returns ``(params, state,
+    metrics)`` with the same tensors it was given."""
+    step = state["step"] + 1
+    scale, gn, lr, b1c, b2c = _hyper(grads, state, cfg, step)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                          tree_leaves(state["v"])):
+        p_new, m_new, v_new = _leaf_update(p, g, m, v, scale, lr, b1c, b2c, cfg)
+        p.copy_(p_new)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        del p_new, m_new, v_new
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gn}

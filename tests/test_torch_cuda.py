@@ -528,3 +528,90 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
             prompts, max_new_tokens=6),
         ServeEngine(cfg=cfg, par=par, params=params, s_max=24, device="cpu").generate(
             prompts, max_new_tokens=6))
+
+
+def _smoke_train(arch, device):
+    from repro_torch.configs import registry
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    cfg = registry.get_smoke(arch)
+    params, _ = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = SyntheticTokenPipeline(cfg.vocab_size, 16, 8, device="cpu").batch_at(0)
+    return cfg, params, tree_map(lambda t: t.to(device), params), batch
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
+    # loss and grads within the CPU parity tests' tolerances, and one
+    # donated train step's params within 2 lr (AdamW's step-1 sign trap)
+    from repro_torch.models import lm
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, params, card, batch = _smoke_train("gemma2_2b", cuda_device)
+    par = ParallelConfig(attn_impl="chunked", attn_chunk=8, remat="block", microbatches=2)
+    card_batch = tree_map(lambda t: t.to(cuda_device), batch)
+
+    def loss_fn(p, b):
+        return lm.loss_fn(p, b, cfg, par)
+
+    l_cpu, _, g_cpu = value_and_grad(loss_fn, params, batch)
+    l_card, _, g_card = value_and_grad(loss_fn, card, card_batch)
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        assert a.device.type == cuda_device.type
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5 + 1e-4 * float(b.abs().max()))
+    optc = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, par, optc)
+    want, _, _ = step(params, init_opt_state(params, optc), batch)
+    got, _, m = step(card, init_opt_state(card, optc), card_batch, donate=True)
+    assert m["loss"].device.type == cuda_device.type
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-3 + 1e-6)
+
+
+def test_donated_train_step_keeps_memory_flat(cuda_device):
+    from repro_torch.launch.donation import jit_train_step
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, _, card, batch = _smoke_train("llama3_405b", cuda_device)
+    batch = tree_map(lambda t: t.to(cuda_device), batch)
+    optc = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    step = jit_train_step(make_train_step(cfg, ParallelConfig(attn_impl="naive", remat="block",
+                                                              microbatches=2), optc))
+    opt = init_opt_state(card, optc)
+    ptrs = [t.data_ptr() for t in tree_leaves((card, opt))]
+    mem = []
+    for _ in range(5):
+        card, opt, m = step(card, opt, batch)
+        float(m["loss"])
+        mem.append(torch.cuda.memory_allocated(cuda_device))
+    assert [t.data_ptr() for t in tree_leaves((card, opt))] == ptrs
+    assert max(mem[1:]) == min(mem[1:]), mem
+
+
+def test_gossip_train_step_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.core.collectives import StackedMesh
+    from repro_torch.launch.donation import jit_train_step
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_gossip_train_step, replicate
+    from repro_torch.tree import tree_map
+
+    cfg, params, card, batch = _smoke_train("codeqwen15_7b", cuda_device)
+    optc = AdamWConfig(peak_lr=4e-3, warmup_steps=2, total_steps=40)
+    par = ParallelConfig(attn_impl="naive", remat="none", grad_sync="gossip", gossip_order=6,
+                         gossip_buckets=4, gossip_overlap=True, microbatches=2)
+    losses = {}
+    for dev, p in (("cpu", params), (cuda_device, card)):
+        step = jit_train_step(make_gossip_train_step(cfg, par, optc, None, StackedMesh(4, dev)))
+        p, o = replicate(p, 4), replicate(init_opt_state(p, optc), 4)
+        b = tree_map(lambda t: t.to(dev), batch)
+        losses[str(dev)] = [float(step(p, o, b)[2]["loss"]) for _ in range(3)]
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"], rtol=0, atol=1e-5)
