@@ -193,7 +193,27 @@ Phases, each printing its own lines:
    repro_torch.train_lm --preset tiny`` on the card as subprocesses, and a
    restart: a failure injected at step 3 of 6, ``run_with_restarts`` ends
    at step 6 after 1 restart, the resumed losses equal an uninterrupted
-   run's within 1e-4.
+   run's within 1e-4;
+14. the dry-run tooling (``repro_torch.launch``: ``dryrun``, ``op_costs``,
+   ``comm``, ``roofline``), on ``meta`` tensors only (nothing runs on the
+   card; no bsr kernel, checked): (a) ``dryrun.main`` on Gemma-2 2B's
+   cells (long_500k skipped, as the run matrix says) and ``--gsp`` (halo,
+   allgather, ca2), each on the 256- and the 512-card mesh, one line per
+   record; held: no error record, and the reference's GSP claims (halo
+   collective bytes under 0.25 x allgather's bytes, allgather memory_s
+   over 5 x halo's, halo words per matvec = 2 side (P - 1) F exactly);
+   (b) the dry run's own ``build_cell`` and ``trace_costs`` at phase
+   13's shape and parallel config (4 x 4096 tokens in 4 microbatches,
+   chunked attention, remat "block") on a one-card mesh: matmul FLOPs
+   within 2 % of ``train_work``'s executed FLOPs, parameter and AdamW
+   bytes equal to what the card held, the analysed
+   peak (arguments and live bytes) within 25 % of phase 13's measured
+   peak above its start; (c) the same for phase 12's prefill (the dry
+   run's ``lm.forward(last_only=True)``) and decode step: the
+   predicted ms, max(FLOPs / 989 TFLOP/s, eager op-boundary bytes / 3.35
+   TB/s), beside the measured device busy ms (reported, not held), and
+   the decode step's analysed bytes at least ``lm_work``'s (every weight
+   and the whole cache are read).
 
 It exits non-zero without printing a result when CUDA is unavailable or
 any check fails. The last line is the device record
@@ -297,6 +317,10 @@ GRAD_LOSS_TOL, GRAD_REL_TOL, GRAD_ABS_TOL = 1e-3, 1e-3, 1e-6
 SMOKE_GRAD_TOL, SMOKE_GRAD_REL = 1e-5, 1e-4
 GOSSIP_TRAIN_BATCH, GOSSIP_TRAIN_SEQ, GOSSIP_TRAIN_STEPS, SCHEDULE_TOL = 16, 256, 3, 1e-5
 RESTART_STEPS, RESTART_FAIL_AT, RESTART_TOL = 6, 3, 1e-4
+# The analysis phase: the dry run of ANALYSIS_ARCH's cells and of the GSP cell
+# (F = GSP_F signals); phase 13's step analysed within ANALYSIS_FLOP_TOL of its
+# executed FLOPs and ANALYSIS_PEAK_TOL of its measured peak.
+ANALYSIS_ARCH, GSP_F, ANALYSIS_FLOP_TOL, ANALYSIS_PEAK_TOL = "gemma2_2b", 128, 0.02, 0.25
 
 
 def say(msg: str) -> None:
@@ -2680,7 +2704,10 @@ def train_phase(dev) -> dict:
     evs = profiled_kernels(one_step)
     wall_ms = window[0].elapsed_time(window[1])
     kernel_ms, gemm_ms, top = kernel_split(evs)
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves((trainer.params, trainer.opt_state)))
     out.update(n_params=n_params, step_ms=step_ms, step_median_ms=med,
+               held_bytes=held, peak_bytes=peak, base_bytes=base_mem,
                tokens_per_s=work["tokens"] / med * 1e3, bound_ms=bound_ms,
                model_flops=work["model_flops"], executed_flops=work["executed_flops"],
                peak_gb=peak / 1e9, mem_drift=drift, ckpt_bytes=written,
@@ -2924,6 +2951,136 @@ def train_phase(dev) -> dict:
         f"({time.perf_counter() - t0:.1f} s)")
     out["seconds"] = time.perf_counter() - t_phase
     say(f"[train] phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+def analysis_phase(dev, lm_out: dict, train_out: dict) -> dict:
+    """Phase 14: the dry-run tooling (``repro_torch.launch``) on ``meta``
+    tensors, held against what phases 12 and 13 measured on the card (see
+    the module docstring). Nothing here runs on the card."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.cells import Cell, cell_skip_reason
+    from repro_torch.launch.mesh import ProductionMesh
+    from repro_torch.launch.roofline import HW
+    from repro_torch.models.config import ParallelConfig, ShapeConfig
+
+    t_phase = time.perf_counter()
+    one_card = ProductionMesh(("data", "model"), (1, 1))
+    out = {}
+    require((HW.peak_flops, HW.hbm_bw) == (BF16_FLOPS_PER_S, HBM_BYTES_PER_S),
+            "launch.roofline.HW and this script's H100 rates differ")
+    require(HW.hbm_capacity <= torch.cuda.get_device_properties(dev).total_memory,
+            "launch.roofline.HW holds more memory than the card")
+
+    # -- (a) the dry run: Gemma-2 2B's cells and the GSP cells, both meshes ------
+    t0 = time.perf_counter()
+    records = []
+    for shape in dryrun.SHAPES.values():
+        reason = cell_skip_reason(Cell(ANALYSIS_ARCH, shape))
+        if reason:
+            say(f"[analysis] (a) {ANALYSIS_ARCH}.{shape.name}: skipped ({reason})")
+            continue
+        for multi_pod in (False, True):
+            (rec,) = dryrun.main(["--arch", ANALYSIS_ARCH, "--shape", shape.name]
+                                 + (["--multi-pod"] if multi_pod else []))
+            records.append(rec)
+    gsp = dryrun.main(["--gsp", "--both-meshes"])
+    for rec in records + gsp:
+        require("error" not in rec, f"dry-run error record {rec}")
+        say(f"[analysis] (a) {json.dumps(rec, sort_keys=True)}")
+    for multi_pod in (False, True):
+        by = {r["backend"]: r for r in gsp if r["multi_pod"] == multi_pod}
+        halo, ag = by["halo"], by["allgather"]
+        require(halo["collective_bytes_per_device"] < 0.25 * ag["hlo_bytes_per_device"],
+                f"GSP halo collective bytes not under 0.25 x allgather's bytes ({multi_pod=})")
+        require(ag["memory_s"] > 5 * halo["memory_s"],
+                f"GSP allgather memory_s not over 5 x halo's ({multi_pod=})")
+        require(halo["measured_words_per_matvec"] == halo["halo_words_per_matvec"] * GSP_F,
+                f"GSP halo words per matvec {halo['measured_words_per_matvec']} != "
+                f"2 side (P - 1) F = {halo['halo_words_per_matvec'] * GSP_F}")
+        say(f"[analysis] (a) GSP claims hold on {halo['n_chips']} cards: halo collective "
+            f"{halo['collective_bytes_per_device'] / 1e6:.3f} MB < 0.25 x allgather bytes "
+            f"{ag['hlo_bytes_per_device'] / 1e6:.1f} MB; allgather memory_s "
+            f"{ag['memory_s'] * 1e3:.4f} ms = {ag['memory_s'] / halo['memory_s']:.1f} x halo's "
+            f"{halo['memory_s'] * 1e3:.4f} ms (> 5); halo words per matvec "
+            f"{halo['measured_words_per_matvec']:.0f} = 2 side (P - 1) F")
+    out["dryrun_s"] = time.perf_counter() - t0
+    say(f"[analysis] (a) {len(records)} {ANALYSIS_ARCH} records and {len(gsp)} GSP records "
+        f"in {out['dryrun_s']:.1f} s, no error record")
+
+    # -- (b) phase 13's step, analysed on one card --------------------------------
+    # The dry run's own cell builder and trace (``build_cell``,
+    # ``trace_costs``) at phase 13's shape and parallel config.
+    t0 = time.perf_counter()
+    cfg = registry.get(TRAIN_ARCH)
+    par = ParallelConfig(attn_impl="chunked", attn_chunk=TRAIN_CHUNK, remat="block",
+                         microbatches=TRAIN_MICRO)
+    cell = dryrun.build_cell(TRAIN_ARCH, ShapeConfig("phase13", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                             mesh=one_card, par=par)
+    w = dryrun.trace_costs(cell)
+    held = cell.arguments["params"] + cell.arguments["opt_state"]
+    flop_ratio = w.matmul_flops / train_out["executed_flops"]
+    predicted_peak = cell.memory["argument_bytes"] + w.peak_live_bytes
+    measured_peak = train_out["peak_bytes"] - train_out["base_bytes"]
+    peak_ratio = predicted_peak / measured_peak
+    require(abs(flop_ratio - 1) <= ANALYSIS_FLOP_TOL,
+            f"analysed train FLOPs {w.matmul_flops:.4e} vs executed "
+            f"{train_out['executed_flops']:.4e}")
+    require(held == train_out["held_bytes"],
+            f"analysed param + AdamW bytes {held:.0f} != the card's {train_out['held_bytes']}")
+    require(abs(peak_ratio - 1) <= ANALYSIS_PEAK_TOL,
+            f"analysed peak {predicted_peak / 1e9:.2f} GB vs measured {measured_peak / 1e9:.2f} GB")
+    train_ms = max(w.matmul_flops / HW.peak_flops, w.hbm_bytes / HW.hbm_bw) * 1e3
+    out.update(train_flop_ratio=flop_ratio, train_peak_ratio=peak_ratio,
+               train_predicted_ms=train_ms, train_trip_counts=w.while_trip_counts)
+    say(f"[analysis] (b) phase 13's step ({cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_MICRO} microbatches, chunked {TRAIN_CHUNK}, remat block) on meta, one card, "
+        f"trip counts {w.while_trip_counts} ({time.perf_counter() - t0:.1f} s): matmul "
+        f"{w.matmul_flops / 1e12:.2f} TFLOP = {flop_ratio:.4f} x train_work's executed "
+        f"{train_out['executed_flops'] / 1e12:.2f} (tol {ANALYSIS_FLOP_TOL:g}); param + AdamW "
+        f"bytes {held:.0f} = the card's after init; peak {predicted_peak / 1e9:.2f} GB "
+        f"(arguments {cell.memory['argument_bytes'] / 1e9:.2f} + live "
+        f"{w.peak_live_bytes / 1e9:.2f}) = "
+        f"{peak_ratio:.3f} x phase 13's {measured_peak / 1e9:.2f} GB above its start (tol "
+        f"{ANALYSIS_PEAK_TOL:g}); eager op-boundary bytes {w.hbm_bytes / 1e12:.2f} TB -> "
+        f"roofline {train_ms:.1f} ms beside the measured step "
+        f"{train_out['step_median_ms']:.1f} ms (device busy {train_out['kernel_ms']:.1f} ms)")
+
+    # -- (c) phase 12's prefill and decode step --------------------------------------
+    # The dry run's prefill cell traces ``lm.forward(last_only=True)``, as
+    # the reference's does: phase 12's ``lm.prefill`` also writes the cache.
+    t0 = time.perf_counter()
+    cfg = registry.get(LM_ARCH)
+    s_max = LM_PROMPT + LM_NEW + 8
+    work = lm_work(cfg, LM_BATCH, LM_PROMPT, s_max, lm_out["param_bytes"], lm_out["n_params"])
+    for name, seq, measured in (("prefill", LM_PROMPT, lm_out["prefill_kernel_ms"]),
+                                ("decode", s_max, lm_out["decode_kernel_ms"])):
+        cell = dryrun.build_cell(LM_ARCH, ShapeConfig(f"phase12_{name}", seq, LM_BATCH, name),
+                                 mesh=one_card, par=launch_serve.PAR)
+        w = dryrun.trace_costs(cell)
+        flops_ms = w.matmul_flops / HW.peak_flops * 1e3
+        bytes_ms = w.hbm_bytes / HW.hbm_bw * 1e3
+        out[f"{name}_predicted_ms"] = max(flops_ms, bytes_ms)
+        out[f"{name}_bytes"] = w.hbm_bytes
+        say(f"[analysis] (c) phase 12's {name} ({cfg.name}, batch {LM_BATCH}, prompt "
+            f"{LM_PROMPT}, s_max {s_max}, naive attention) on meta: "
+            f"{w.matmul_flops / 1e12:.4f} TFLOP ({flops_ms:.3f} ms at "
+            f"{HW.peak_flops / 1e12:.0f} TFLOP/s), eager op-boundary bytes "
+            f"{w.hbm_bytes / 1e9:.3f} GB ({bytes_ms:.3f} ms at 3.35 TB/s) -> predicted "
+            f"{max(flops_ms, bytes_ms):.3f} ms beside the measured device busy {measured:.3f} ms "
+            f"(x{measured / max(flops_ms, bytes_ms):.2f})")
+    require(out["decode_bytes"] >= work["decode_bytes"],
+            f"analysed decode bytes {out['decode_bytes']:.4e} under lm_work's "
+            f"{work['decode_bytes']:.4e} (every weight and the cache are read)")
+    say(f"[analysis] (c) decode analysed bytes {out['decode_bytes'] / 1e9:.3f} GB >= lm_work's "
+        f"{work['decode_bytes'] / 1e9:.3f} GB (weights + the s_max cache) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[analysis] phase 14 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3308,14 +3465,19 @@ def main() -> int:
             == (u_before, s_before), "the gossip phase launched a bsr kernel")
 
     # ---- 12. LM serving: Gemma-2 2B at full width, numerics, smoke configs ------
-    lm_phase(dev)
+    lm_out = lm_phase(dev)
     require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
             == (u_before, s_before), "the LM serving phase launched a bsr kernel")
 
     # ---- 13. training: Gemma-2 2B at full width, numerics, gossip, entry points --
-    train_phase(dev)
+    train_out = train_phase(dev)
     require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
             == (u_before, s_before), "the training phase launched a bsr kernel")
+
+    # ---- 14. the dry-run tooling, held against phases 12 and 13 ------------------
+    analysis_phase(dev, lm_out, train_out)
+    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
+            == (u_before, s_before), "the analysis phase launched a bsr kernel")
     say(smi)
 
     kernels = [

@@ -1,5 +1,6 @@
-"""Launch layer of the port, in local mode: the serving and training CLIs
-and the donation tables.
+"""Launch layer of the port: the serving and training CLIs (local mode),
+the donation tables, and the dry-run tooling, which traces a production
+cell's step on ``meta`` tensors (``mesh``, ``cells``, ``roofline``,
+``op_costs``, ``comm``, ``dryrun``, ``hillclimb``).
 
-Mirrors ``repro/launch``. The reference's production meshes, AOT dry-run
-and hill-climb tooling read XLA HLO and are not ported yet."""
+Mirrors ``repro/launch``."""

@@ -3,13 +3,15 @@
 Mirrors ``repro/launch/serve.py`` in local mode: real batched generation
 through the ``ServeEngine`` on ``--device`` (default ``cuda``, raising
 without it), weights drawn from a seeded generator on that device.
-``--dryrun`` (the reference's AOT compile of a production decode cell)
-belongs to the XLA tooling, which is not ported: it exits with a message
-saying so.
+``--dryrun`` hands the cell (``--arch``, ``--shape``, ``--multi-pod``) to
+``repro_torch.launch.dryrun.main``, which traces it on ``meta``
+tensors (no card) and prints its roofline record, as the reference hands
+it to its AOT compile.
 
 Examples:
   python -m repro_torch.launch.serve --arch gemma2_2b --smoke --tokens 16 --device cpu
   python -m repro_torch.launch.serve --arch gemma2_2b --batch 4 --prompt-len 4608 --tokens 64
+  python -m repro_torch.launch.serve --arch gemma2_2b --dryrun
 """
 
 from __future__ import annotations
@@ -30,8 +32,6 @@ from repro_torch.serve import ServeEngine
 __all__ = ["PAR", "build", "serve", "main"]
 
 PAR = ParallelConfig(attn_impl="naive", remat="none")
-DRYRUN_MESSAGE = ("--dryrun compiles a production cell with the XLA tooling, which the port "
-                  "does not have yet; run the reference's repro.launch.serve for it")
 
 
 def build(arch: str, *, smoke: bool = False, device: str | torch.device | None = None,
@@ -85,7 +85,11 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise SystemExit(DRYRUN_MESSAGE)
+        from repro_torch.launch import dryrun
+
+        dryrun.main(["--arch", args.arch, "--shape", args.shape]
+                    + (["--multi-pod"] if args.multi_pod else []))
+        raise SystemExit(0)
 
     cfg, params = build(args.arch, smoke=args.smoke, device=args.device)
     rec = serve(cfg, params, batch=args.batch, prompt_len=args.prompt_len, tokens=args.tokens,

@@ -6,13 +6,15 @@ generator seeded with 0 on that device, through ``make_train_step`` (or,
 with ``--grad-sync gossip``, ``make_gossip_train_step`` on a
 ``StackedMesh`` of ``--n-parts`` ranks, which stands in for the
 reference's mesh over ``len(jax.devices())``), ``jit_train_step``'s
-donation, ``Trainer`` and ``run_with_restarts``. ``--dryrun`` (the
-reference's AOT compile of a production cell) belongs to the XLA
-tooling, which is not ported: it exits with a message saying so.
+donation, ``Trainer`` and ``run_with_restarts``. ``--dryrun`` hands the
+cell (``--arch``, ``--shape``, ``--multi-pod``) to
+``repro_torch.launch.dryrun.main``, which traces it on ``meta`` tensors (no
+card), as the reference hands it to its AOT compile.
 
 Examples:
   python -m repro_torch.launch.train --arch gemma2_2b --smoke --steps 5 --device cpu
   python -m repro_torch.launch.train --arch gemma2_2b --smoke --steps 20
+  python -m repro_torch.launch.train --arch gemma2_2b --dryrun
 """
 
 from __future__ import annotations
@@ -40,9 +42,6 @@ from repro_torch.train import (HOST_REPLICA, Trainer, make_gossip_train_step, ma
 
 __all__ = ["main"]
 
-DRYRUN_MESSAGE = ("--dryrun compiles a production cell with the XLA tooling, which the port "
-                  "does not have yet; run the reference's repro.launch.train for it")
-
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
@@ -50,7 +49,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--dryrun", action="store_true",
-                    help="AOT-compile the production cell instead (not ported)")
+                    help="trace the production cell on meta tensors instead (launch.dryrun)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -76,7 +75,11 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise SystemExit(DRYRUN_MESSAGE)
+        from repro_torch.launch import dryrun
+
+        dryrun.main(["--arch", args.arch, "--shape", args.shape]
+                    + (["--multi-pod"] if args.multi_pod else []))
+        raise SystemExit(0)
 
     dev = resolve_device(args.device)
     gossip = args.grad_sync == "gossip"

@@ -29,7 +29,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, apply_dense_ffn, init_dense_ffn
 from repro_torch.models.sharding import ShardingRules, constrain
 
-__all__ = ["init_moe", "apply_moe", "top_k_lower_index"]
+__all__ = ["init_moe", "apply_moe", "top_k_lower_index", "group_capacity"]
 
 
 def init_moe(rng: Init, cfg: ModelConfig, dtype) -> tuple[dict, dict]:
@@ -57,6 +57,15 @@ def top_k_lower_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     indices; equal entries in index order (``jax.lax.top_k``'s rule)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def group_capacity(tokens: int, n_groups: int, k: int, e: int, cf: float) -> tuple[int, int]:
+    """``(groups, capacity)``: ``n_groups`` dispatch groups when they split
+    the tokens evenly (else one), and each group's per-expert capacity,
+    padded to a multiple of 8."""
+    g = n_groups if tokens % n_groups == 0 else 1
+    cap = int(math.ceil(tokens // g * k / e * cf))
+    return g, max(8, -(-cap // 8) * 8)
 
 
 def _group_dispatch(xg, gate, idx, e: int, cap: int):
@@ -102,7 +111,7 @@ def apply_moe(
     b, s, d = x.shape
     t = b * s
     e, k = moe.n_experts, moe.top_k
-    g = n_groups if t % n_groups == 0 else 1
+    g, cap = group_capacity(t, n_groups, k, e, cf)
     tg = t // g
     xf = x.reshape(t, d)
 
@@ -115,10 +124,6 @@ def apply_moe(
     density = F.one_hot(idx[:, 0], e).float().mean(0)
     router_mean = probs.mean(0)
     aux = e * torch.sum(density * router_mean)
-
-    # group-local capacity, padded to a multiple of 8
-    cap = int(math.ceil(tg * k / e * cf))
-    cap = max(8, -(-cap // 8) * 8)
 
     xg = constrain(xf.reshape(g, tg, d), rules, "act_moe_group", None, None)
     gate_g = gate.reshape(g, tg, k)

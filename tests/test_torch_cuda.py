@@ -615,3 +615,44 @@ def test_gossip_train_step_on_the_card_matches_the_cpu(cuda_device):
         b = tree_map(lambda t: t.to(dev), batch)
         losses[str(dev)] = [float(step(p, o, b)[2]["loss"]) for _ in range(3)]
     np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"], rtol=0, atol=1e-5)
+
+
+def test_dry_run_hardware_fits_the_card_and_counts_as_the_flop_counter(cuda_device):
+    # The dry run's H100 model holds no more memory than this card has,
+    # and analyze_step counts a one-layer train step's matmul FLOPs on the
+    # card as torch's own FlopCounterMode counts the same step.
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.op_costs import analyze_step
+    from repro_torch.launch.roofline import HW
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    assert HW.hbm_capacity <= torch.cuda.get_device_properties(cuda_device).total_memory
+    cfg, _, params, batch = _one_layer_train(cuda_device)
+    optc = AdamWConfig()
+    step = make_train_step(cfg, ParallelConfig(attn_impl="naive", remat="block"), optc)
+    got = analyze_step(step, params, init_opt_state(params, optc), batch)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step(params, init_opt_state(params, optc), batch)
+    assert got.matmul_flops == counter.get_total_flops() > 0
+
+
+def _one_layer_train(device):
+    """Gemma-2's smoke config cut to one repeat group, params and a batch
+    on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    cfg = registry.get_smoke("gemma2_2b")
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+    params, _ = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = SyntheticTokenPipeline(cfg.vocab_size, 16, 4, device="cpu").batch_at(0)
+    return cfg, params, tree_map(lambda t: t.to(device), params), \
+        tree_map(lambda t: t.to(device), batch)

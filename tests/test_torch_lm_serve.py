@@ -202,8 +202,12 @@ def test_serve_launcher_runs_in_process(capsys):
     assert rec["arch"] == "gemma2-2b-smoke" and rec["device"] == "cpu"
     assert np.asarray(rec["tokens"]).shape == (2, 4) and rec["tokens_per_s"] > 0
     assert "tokens_per_s" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="XLA tooling"):
+    # --dryrun hands the cell to ``repro_torch.launch.dryrun.main``
+    # (meta tensors, no card), which prints its roofline line
+    with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--arch", "llama3_405b", "--shape", "decode_32k", "--dryrun"])
+    assert exc.value.code == 0
+    assert "[llama3_405b.decode_32k] trace=" in capsys.readouterr().out
 
 
 def test_serve_lm_example_runs():

@@ -376,9 +376,13 @@ def test_launcher_gossip_on_cpu(tmp_path):
                                                           for t in tree_leaves(params)]
 
 
-def test_launcher_dryrun_exits_with_a_message():
-    with pytest.raises(SystemExit, match="XLA tooling"):
+def test_launcher_dryrun_exits_with_a_message(capsys):
+    # --dryrun hands the cell to ``repro_torch.launch.dryrun.main``,
+    # which traces it on meta tensors and prints its roofline line
+    with pytest.raises(SystemExit) as exc:
         launch_train.main(["--arch", "gemma2_2b", "--dryrun"])
+    assert exc.value.code == 0
+    assert "[gemma2_2b.train_4k] trace=" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("grad_sync", ["allreduce", "gossip"])
