@@ -37,6 +37,7 @@ from repro_torch.core.graph import SensorGraph
 from repro_torch.device import pinned_uploads, resolve_device, upload
 from repro_torch.filters import registry
 from repro_torch.kernels import cheb_bsr
+from repro_torch.telemetry import span
 
 __all__ = [
     "CudaGraphProgram",
@@ -484,7 +485,11 @@ class GraphFilter:
             (eta,) + f.shape stacked outputs.
         """
         be = self._backend(backend)
-        return be.apply(self, self._backend_state(be, opts), self._signal(f), **opts)
+        f = self._signal(f)
+        with span("filter.apply", device=True) as sp:
+            if sp:
+                sp.note(backend=backend, shape=tuple(f.shape))
+            return be.apply(self, self._backend_state(be, opts), f, **opts)
 
     def apply_panel(
         self, panel, *, backend: str = "dense", width: int | None = None, **opts
@@ -573,7 +578,11 @@ class GraphFilter:
         """Apply the adjoint ``Phi~* a`` (paper eq. 13); ``a`` is
         (eta,) + signal.shape, the result signal.shape."""
         be = self._backend(backend)
-        return be.adjoint(self, self._backend_state(be, opts), self._signal(a), **opts)
+        a = self._signal(a)
+        with span("filter.adjoint", device=True) as sp:
+            if sp:
+                sp.note(backend=backend, shape=tuple(a.shape))
+            return be.adjoint(self, self._backend_state(be, opts), a, **opts)
 
     def apply_series(self, f, series: np.ndarray, *, backend: str = "dense", **opts):
         """Apply one polynomial ``p(S_1..S_R) f`` in this filter's shifts,

@@ -60,6 +60,7 @@ from repro_torch.filters.registry import (
     require_capability,
 )
 from repro_torch.kernels import autotune, cheb_bsr, ops as kops, ref as kref
+from repro_torch.telemetry import span
 
 __all__ = [
     "DenseBackend",
@@ -288,8 +289,9 @@ class BsrBackend:
         _check_device(f, state.perm.device)
         squeeze = f.ndim == 1
         f2 = f[:, None] if squeeze else f
-        fp = F.pad(f2[state.perm], (0, 0, 0, state.n_pad - state.n))
-        return fp.contiguous(), squeeze
+        with span("bsr.permute"):
+            fp = F.pad(f2[state.perm], (0, 0, 0, state.n_pad - state.n)).contiguous()
+        return fp, squeeze
 
     def apply(
         self,
@@ -320,7 +322,8 @@ class BsrBackend:
         else:
             out = self._union_apply(state.bell, fp, c, filt.lmax, fuse=fuse, f_tile=f_tile,
                                     krylov_dtype=kd)
-        out = out[:, state.inv]
+        with span("bsr.unpermute"):
+            out = out[:, state.inv]
         return out[:, :, 0] if squeeze else out
 
     @staticmethod
@@ -329,18 +332,16 @@ class BsrBackend:
         kernel when ``select_tiling`` (or ``fuse=``) says so, else the
         stepwise chain. ``c`` is (eta, M+1), host array or device tensor."""
         if fuse is None:
-            fuse = autotune.select_tiling(
-                fp.shape[0], fp.shape[1], c.shape[0],
-                bell.n_block_rows, bell.k_max, bell.block_size, fp.dtype,
-                krylov_dtype=krylov_dtype, sm_count=autotune.device_sm_count(fp.device),
-            ).fuse
-        if fuse:
-            return kops.cheb_apply_bsr_fused(
-                bell.blocks, bell.cols, fp, c, lmax, f_tile=f_tile, krylov_dtype=krylov_dtype
-            )
-        return kops.cheb_apply_bsr(
-            bell.blocks, bell.cols, fp, c, lmax, f_tile=f_tile, krylov_dtype=krylov_dtype
-        )
+            with span("bsr.tiling"):
+                fuse = autotune.select_tiling(
+                    fp.shape[0], fp.shape[1], c.shape[0],
+                    bell.n_block_rows, bell.k_max, bell.block_size, fp.dtype,
+                    krylov_dtype=krylov_dtype, sm_count=autotune.device_sm_count(fp.device),
+                ).fuse
+        union = kops.cheb_apply_bsr_fused if fuse else kops.cheb_apply_bsr
+        with span("bsr.union"):
+            return union(bell.blocks, bell.cols, fp, c, lmax, f_tile=f_tile,
+                         krylov_dtype=krylov_dtype)
 
     @staticmethod
     def _bell_matvec(bell, n_pad: int):
@@ -358,18 +359,21 @@ class BsrBackend:
         _check_device(a, state.perm.device)
         squeeze = a.ndim == 2  # (eta, N) -> signals are 1-D
         a3 = a[:, :, None] if squeeze else a
-        ap = F.pad(a3[:, state.perm], (0, 0, 0, state.n_pad - state.n))
+        with span("bsr.permute"):
+            ap = F.pad(a3[:, state.perm], (0, 0, 0, state.n_pad - state.n))
         c = cheb_bsr.device_coeffs(filt.coeffs, ap.device)
-        if isinstance(state, _BsrMultiState):
-            out = chebyshev.cheb_adjoint_apply_joint(
-                [self._bell_matvec(b, state.n_pad) for b in state.bells], ap, c,
-                filt.shift_lmaxes,
-            )
-        else:
-            out = chebyshev.cheb_adjoint_apply(
-                self._bell_matvec(state.bell, state.n_pad), ap, c, filt.lmax
-            )
-        out = out[state.inv]
+        with span("bsr.recurrence"):
+            if isinstance(state, _BsrMultiState):
+                out = chebyshev.cheb_adjoint_apply_joint(
+                    [self._bell_matvec(b, state.n_pad) for b in state.bells], ap, c,
+                    filt.shift_lmaxes,
+                )
+            else:
+                out = chebyshev.cheb_adjoint_apply(
+                    self._bell_matvec(state.bell, state.n_pad), ap, c, filt.lmax
+                )
+        with span("bsr.unpermute"):
+            out = out[state.inv]
         return out[:, 0] if squeeze else out
 
     def messages_per_apply(self, filt, state, matvec_counts) -> int:

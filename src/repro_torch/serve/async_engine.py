@@ -59,6 +59,7 @@ from repro_torch.serve.tickets import LANES, Ticket
 from repro_torch.solvers import LassoProblem, SolveResult, lasso_panel_program
 from repro_torch.stream import StreamingFilter
 from repro_torch.stream.api import stream_device
+from repro_torch.telemetry import span
 
 __all__ = ["AsyncGraphFilterEngine"]
 
@@ -169,8 +170,6 @@ class AsyncGraphFilterEngine:
         self.solved = 0
         self.solves = 0
         self.frames_served = 0
-        self.stream_words = 0
-        self.stream_latency_s = 0.0
         self.streams_evicted = 0
         self.panel_slots = 0  # bucketed slots executed (apply+solve lanes)
         self.pad_slots = 0  # of those, zero-padding waste
@@ -276,25 +275,31 @@ class AsyncGraphFilterEngine:
     # -- panel execution ----------------------------------------------------
 
     def _execute(self, lane, batch, now: float, virtual: bool) -> None:
-        t0 = time.perf_counter()
-        results = self._run_panel(lane, batch, now)
-        if lane == "frame" and self.device.type == "cuda":
-            # Frame outputs stay on the device: end the timed window when
-            # the device has finished the panel's work.
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            done.synchronize()
-        dt = time.perf_counter() - t0
-        self.busy_s += dt
-        if virtual:
-            start = max(now, self._busy_until)
-            t_done = start + dt
-            self._busy_until = t_done
-        else:
-            t_done = self.clock()
-        for req, res in zip(batch, results):
-            req.ticket._resolve(res, t_done)
-            self.scheduler.release(req.ticket)
+        with span("serve.panel") as sp:
+            if sp:
+                start = max(now, self._busy_until) if virtual else self.clock()
+                sp.note(lane=lane, k=len(batch), tids=[req.ticket.tid for req in batch],
+                        queue_wait_s=[start - req.ticket.t_submit for req in batch])
+            t0 = time.perf_counter()
+            results = self._run_panel(lane, batch, now)
+            if lane == "frame" and self.device.type == "cuda":
+                # Frame outputs stay on the device: end the timed window when
+                # the device has finished the panel's work.
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+            dt = time.perf_counter() - t0
+            self.busy_s += dt
+            if virtual:
+                start = max(now, self._busy_until)
+                t_done = start + dt
+                self._busy_until = t_done
+            else:
+                t_done = self.clock()
+            with span("serve.resolve"):
+                for req, res in zip(batch, results):
+                    req.ticket._resolve(res, t_done)
+                    self.scheduler.release(req.ticket)
 
     def _run_panel(self, lane, batch, now: float) -> list:
         if lane == "apply":
@@ -305,43 +310,64 @@ class AsyncGraphFilterEngine:
 
     def _pack(self, batch) -> tuple[np.ndarray, int, int]:
         """Stack (N,) payloads into a bucket-width zero-padded panel."""
-        k = len(batch)
-        panel = np.stack([req.payload for req in batch], axis=1)
-        if panel.dtype != np.float32:
-            panel = panel.astype(np.float32)
-        b = bucket_size(k, self.config.max_panel, floor=self.config.min_bucket)
-        if k < b:
-            panel = np.pad(panel, ((0, 0), (0, b - k)))
+        with span("serve.pack") as sp:
+            k = len(batch)
+            panel = np.stack([req.payload for req in batch], axis=1)
+            if panel.dtype != np.float32:
+                panel = panel.astype(np.float32)
+            b = bucket_size(k, self.config.max_panel, floor=self.config.min_bucket)
+            if k < b:
+                panel = np.pad(panel, ((0, 0), (0, b - k)))
+            if sp:
+                sp.note(b=b, k=k)
         self.panel_slots += b
         self.pad_slots += b - k
         return panel, k, b
 
+    def _run_program(self, key, build, panel: np.ndarray):
+        """Upload ``panel`` and run the cached program under ``key`` on it:
+        a replay, or on a cache miss the program's build and first call
+        (on the card, the capture of its CUDA graph)."""
+        with span("serve.upload") as sp:
+            if sp:
+                sp.note(bytes=panel.nbytes)
+            dev_panel = upload(panel, self.device)
+        with span("serve.replay" if key in self.cache else "serve.capture") as sp:
+            if sp:
+                sp.note(lane=key[0], b=key[-1])
+            return self.cache.get(key, build)(dev_panel)
+
     def _run_apply(self, batch) -> list[torch.Tensor]:
         panel, k, b = self._pack(batch)
-        prog = self.cache.get(
+        out = self._run_program(
             ("apply", self.backend, panel.shape[0], b),
             # The engine copies the answers to the host at once and never
             # keeps the program's output, so the program may return its
             # static output buffer (donate=True): no net device
             # allocation per batch at steady state.
             lambda: self.filt.panel_program(backend=self.backend, donate=True, **self.opts),
+            panel,
         )
-        (out,) = host_copy(prog(upload(panel, self.device)))  # (eta, N, b)
+        with span("serve.copy_back"):
+            (out,) = host_copy(out)  # (eta, N, b)
+            answers = [out[:, :, i] for i in range(k)]
         self.applies += 1
         self.served += k
-        return [out[:, :, i] for i in range(k)]
+        return answers
 
     def _run_solve(self, batch) -> list[SolveResult]:
         panel, k, b = self._pack(batch)
         solve_backend = getattr(self.solver, "backend", None) or self.backend
-        prog = self.cache.get(
+        res = self._run_program(
             ("solve", solve_backend, panel.shape[0], b),
             lambda: self._build_solve_program(panel.shape[0]),
+            panel,
         )
-        res = prog(upload(panel, self.device))
+        with span("serve.copy_back"):
+            answers = solve_answers(res, k)
         self.solves += 1
         self.solved += k
-        return solve_answers(res, k)
+        return answers
 
     def _build_solve_program(self, n: int):
         """Build the whole solve as one program when the spec allows, else
@@ -402,11 +428,12 @@ class AsyncGraphFilterEngine:
             # Reinsert at the tail: dict order is the LRU order.
             self._streams[stream_id] = lane
             self._stream_seen[stream_id] = now
-            res = lane.push(frame, delta=gdelta)
+            with span("serve.frame") as sp:
+                res = lane.push(frame, delta=gdelta)
+                if sp:
+                    sp.note(tid=req.ticket.tid, stream=stream_id, mode=res.mode)
             results.append(res)
             self.frames_served += 1
-            self.stream_words += res.words
-            self.stream_latency_s += res.latency_s
         self._evict_streams(now)
         return results
 

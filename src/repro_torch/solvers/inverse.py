@@ -181,7 +181,8 @@ def cheb_inverse(
         return x + pre(r), (rel, rel)
 
     x, hist, k, conv = iterate(
-        step, x, n_iters=n_iters, tol=tol, traceable=backend_is_traceable(backend)
+        step, x, n_iters=n_iters, tol=tol, traceable=backend_is_traceable(backend),
+        method="cheb_inverse",
     )
     words = filt.messages_per_apply(
         orders=tuple(2 * m for m in filt.orders), backend=backend, **opts

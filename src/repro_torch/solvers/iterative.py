@@ -124,7 +124,8 @@ def _lasso(method, problem, a0, n_iters, tol, backend, opts) -> SolveResult:
     a0 = fwd(y) if a0 is None else _cast(problem.filt._signal(a0), y)
     step, init, final = _LASSO_MACHINES[method](y, tau, fwd, adj, soft, l1)
     state, hist, k, conv = iterate(
-        step, init(a0), n_iters=n_iters, tol=tol, traceable=backend_is_traceable(backend)
+        step, init(a0), n_iters=n_iters, tol=tol, traceable=backend_is_traceable(backend),
+        method=method,
     )
     return _lasso_result(problem, final(state), hist, k, conv, method, backend, opts)
 
@@ -219,7 +220,8 @@ def conjugate_gradient(
     z0 = precond(r)
     init = (x, r, z0, _colsum(r, z0))
     (x, _, _, _), hist, k, conv = iterate(
-        step, init, n_iters=n_iters, tol=tol, traceable=backend_is_traceable(backend)
+        step, init, n_iters=n_iters, tol=tol, traceable=backend_is_traceable(backend),
+        method="cg",
     )
     words = problem.messages_per_iteration(backend, **opts)
     pre_orders = getattr(preconditioner, "orders", None)
@@ -307,7 +309,7 @@ def lasso_panel_program(
         problem = LassoProblem(filt=filt, y=y, mu=mu, step=step)
         y2, tau, fwd, adj, soft, l1 = _lasso_setup(problem, backend, opts)
         stepf, init, final = machine(y2, tau, fwd, adj, soft, l1)
-        state, traces, _ = run_loop(stepf, init(fwd(y2)), n_iters)
+        state, traces, _ = run_loop(stepf, init(fwd(y2)), n_iters, method=method)
         a = final(state)
         return filt.adjoint(a, backend=backend, **opts), a, stacked_f32(traces, y2.device)
 

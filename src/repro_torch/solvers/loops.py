@@ -28,6 +28,8 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from repro_torch.telemetry import span
+
 __all__ = ["iterate"]
 
 StepFn = Callable[[Any], Tuple[Any, Tuple[torch.Tensor, torch.Tensor]]]
@@ -40,6 +42,7 @@ def iterate(
     n_iters: int,
     tol: float | None,
     traceable: bool,
+    method: str = "",
 ) -> tuple[Any, np.ndarray, int, bool]:
     """Drive ``step`` for up to ``n_iters`` iterations.
 
@@ -56,6 +59,8 @@ def iterate(
         Early-stop threshold on ``stop``; None means a fixed-count loop.
     traceable : bool
         The backend's ``traceable`` capability (see the module docstring).
+    method : str
+        The solver's name, an attribute of each ``solver.iteration`` span.
 
     Returns
     -------
@@ -69,7 +74,7 @@ def iterate(
     if n_iters == 0:
         return init, np.zeros((0,), np.float64), 0, tol is None
 
-    state, traces, converged = run_loop(step, init, n_iters, tol, f32=traceable)
+    state, traces, converged = run_loop(step, init, n_iters, tol, f32=traceable, method=method)
     if traceable:
         history = stacked_f32(traces).cpu().numpy().astype(np.float64)
     else:
@@ -77,7 +82,8 @@ def iterate(
     return state, history, len(traces), converged
 
 
-def run_loop(step, init, n_iters: int, tol: float | None = None, *, f32: bool = True):
+def run_loop(step, init, n_iters: int, tol: float | None = None, *, f32: bool = True,
+             method: str = ""):
     """Run ``step`` up to ``n_iters`` times; returns ``(state, traces,
     converged)`` with the traces as the step gave them.
 
@@ -85,11 +91,15 @@ def run_loop(step, init, n_iters: int, tol: float | None = None, *, f32: bool = 
     loop once ``stop <= tol``; ``f32`` rounds ``stop`` and ``tol`` to
     float32 first, as the reference's ``while_loop`` compares them.
     Without ``tol`` nothing is read back, so the traces stay on the device.
+    Each step runs inside a ``solver.iteration`` span (``method``, index).
     """
     rnd = np.float32 if f32 else np.float64
     state, traces, converged = init, [], tol is None
-    for _ in range(n_iters):
-        state, (trace, stop) = step(state)
+    for i in range(n_iters):
+        with span("solver.iteration", device=True) as sp:
+            if sp:
+                sp.note(method=method, index=i)
+            state, (trace, stop) = step(state)
         traces.append(trace)
         if tol is not None and rnd(float(stop)) <= rnd(tol):
             converged = True

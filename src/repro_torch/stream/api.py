@@ -58,6 +58,7 @@ from repro_torch.dynamic.delta import (
     restricted_cheb_apply_krylov,
 )
 from repro_torch.filters import GraphFilter, backend_supports_sparse, bucket_size, gather_reach
+from repro_torch.telemetry import span
 
 __all__ = ["FrameResult", "StreamingFilter"]
 
@@ -132,15 +133,18 @@ class FrameResult:
 
 
 def _host_work(method):
-    """Add a host algorithm's host-clock time to the push's ``host_s``."""
+    """Add a host algorithm's host-clock time to the push's ``host_s``,
+    inside a ``stream.<method>`` span."""
+    name = "stream." + method.__name__.lstrip("_")
 
     @functools.wraps(method)
     def timed(self, *args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return method(self, *args, **kwargs)
-        finally:
-            self._host_s += time.perf_counter() - t0
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                self._host_s += time.perf_counter() - t0
 
     return timed
 
