@@ -9,7 +9,7 @@ Phases, each printing its own lines:
 2. build: compiles ``src/repro_torch/kernels/csrc/cheb_bsr.cu`` with
    ``nvcc`` for sm_90a (first use), reports how long it took and each
    kernel's registers and spills from ``ptxas -v``, and fails if a union
-   kernel or a step strip kernel spills;
+   kernel, an adjoint kernel or a step strip kernel spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on random Block-ELL operands at B = 8 and 16 (random tiles for the
    step, random-graph Laplacian tiles for the union), the step also at
@@ -17,7 +17,10 @@ Phases, each printing its own lines:
    bf16; the step also at F = 100 in slabs of 32 (a ragged last slab), the
    union at F = 100 (a ragged last pass) on the deployment graph tiled at
    B = 8 and at B = 16, and at the solvers' gram shape (eta = 1, order
-   2M) on the deployment operands;
+   2M) on the deployment operands; the adjoint kernel at the lasso's
+   (eta, N, F) on the deployment graph, at F = 100 (f_tile 32 at B = 8, a
+   ragged last pass; the default tiling at B = 16) and at one squeezed
+   column, one launch each;
 4. main path: with the launch counts set to 0, the paper-shape quickstart
    (``repro_torch.quickstart.main``: N = 500, Tikhonov M = 20, dense and
    bsr fused and stepwise, heat smoothing, SSL) and the deployment shape
@@ -27,21 +30,24 @@ Phases, each printing its own lines:
    bsr fused, bsr stepwise and dense; then the counts are read and checked;
 5. solvers (``repro_torch.solvers`` and the solver-backed apps), with
    the launch counts set to 0 before each solve and checked exactly after
-   it. Paper Sec. V-C shape (N = 500, the SGWT bank with eta = 4, M = 20,
-   mu = 2, on bsr): ISTA against FISTA (iterations to ISTA's best
-   objective in 150; FISTA-20 at least as good as ISTA-40), bsr against
-   dense, CG inverse filtering, Chebyshev-preconditioned CG, the
-   Chebyshev fixed-point inverse, the three apps, and one CG solve on the
-   stepwise route (the step kernel on the solver path); then each kernel
+   it (the adjoint kernel's too: one launch per bsr adjoint, so a lasso
+   solve launches iterations + 1 of each). Paper Sec. V-C shape (N =
+   500, the SGWT bank with eta = 4, M = 20, mu = 2, on bsr): ISTA
+   against FISTA (iterations to ISTA's best objective in 150; FISTA-20 at
+   least as good as ISTA-40), bsr against dense, CG inverse filtering,
+   Chebyshev-preconditioned CG, the Chebyshev fixed-point inverse, the
+   three apps, and one CG solve on the stepwise route (the step kernel on
+   the solver path); then each kernel
    against its plain version at those solves' operands (one column; the
    lasso bank, the gram and both fitted inverse series for the union).
    Deployment shape: FISTA on a 256-column panel on bsr against dense,
    and a Wiener solve on bsr against dense; then the peak device memory;
 6. timing at the deployment shape: median CUDA-event milliseconds over 15
    runs after 3 warm-up runs, for the applies and for each kernel beside
-   its plain version, with each kernel's bound from the bytes and
-   operations of this run's inputs; each kernel's device time from
-   ``torch.profiler`` (the event time also holds the wrapper's host
+   its plain version (the adjoint kernel also beside the plain recurrence
+   on eta-stacked columns it replaced), with each kernel's bound from the
+   bytes and operations of this run's inputs; each kernel's device time
+   from ``torch.profiler`` (the event time also holds the wrapper's host
    work); the union kernel's cost per order and per launch from one
    64-column pass at M = 2 and M = 20; one bf16 step (the signal dtype
    only the stepwise route serves); and, as the step kernel's yardstick,
@@ -110,7 +116,8 @@ Phases, each printing its own lines:
    replayed from a graph against its plain version at F = 8 and 128; a
    stepwise program (M step launches per replay, the step kernel replayed
    from a graph against its plain version); the FISTA-8 solve programs at
-   buckets 8 and 128 (M + 1 union launches per replay); per bucket the
+   buckets 8 and 128 (iterations + 1 union and adjoint launches per
+   replay, held to the recorded graph's kernel nodes); per bucket the
    eager and replay ms, the host ms to pack, upload and copy back a panel,
    and the synchronising operations per panel. The sync engine
    (``panel_width=128``) on 300 requests per lane against solo applies,
@@ -242,6 +249,7 @@ F32_FLOPS_PER_S = 67e12
 PAPER_N, DEPLOY_N, DEPLOY_F, ORDER, BLOCK = 500, 8192, 256, 20, 8
 F32_STEP_TOL, BF16_STEP_TOL = 1e-5, 5e-2  # tests/test_kernels.py
 UNION_TOL = 2e-4  # tests/test_kernels.py
+ADJOINT_KERNEL_TOL = 1e-5  # tests/test_torch_cuda.py, the adjoint kernel against its plain version
 BF16_REL_BOUND = 16 * 2.0**-8  # tests/test_krylov_precision.py
 AGREE_TOL = 2e-4  # deployment: fused, stepwise and dense outputs
 BSR_DENSE_TOL = 1e-4  # paper shape: bsr against dense
@@ -417,8 +425,8 @@ def kernel_split(evs, per: int = 1, top: int = 4) -> tuple[float, float, str]:
                                   for name, ms, count in heads)
 
 
-def graph_kernel_nodes(graph) -> tuple[int, int]:
-    """The union and step kernel nodes (strip and generic) of a recorded
+def graph_kernel_nodes(graph) -> tuple[int, int, int]:
+    """The union, step (strip and generic) and adjoint kernel nodes of a recorded
     ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``: what one
     replay launches, read from the graph through the driver's graph API
     (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams_v2``, the kernel's
@@ -456,7 +464,8 @@ def graph_kernel_nodes(graph) -> tuple[int, int]:
             call(cu.cuKernelGetName, ctypes.byref(name), ctypes.c_void_p(params.kern))
         names.append(name.value.decode())
     return (sum("cheb_union_kernel" in nm for nm in names),
-            sum("cheb_step" in nm for nm in names))
+            sum("cheb_step" in nm for nm in names),
+            sum("cheb_adjoint_union_kernel" in nm for nm in names))
 
 
 def kernel_ms_once(fn):
@@ -484,25 +493,30 @@ def union_work(nnz_l: int, tile_bytes: int, n: int, f: int, eta: int, order: int
 
 
 class LaunchCounter:
-    """Runs a call with both kernels' launch counts set to 0 before it,
-    reads them after it, and keeps the totals over every counted call."""
+    """Runs a call with the kernels' launch counts set to 0 before it,
+    reads them after it, and keeps the totals over every counted call.
+    It returns the call's result and its ``launch_counts()``: union,
+    step, adjoint."""
 
     def __init__(self, cheb_bsr):
         self.cheb_bsr = cheb_bsr
-        self.union = self.step = 0
+        self.union = self.step = self.adjoint = 0
 
     def __call__(self, fn):
         self.cheb_bsr.reset_launch_counts()
         out = fn()
-        union = self.cheb_bsr.cheb_union_cuda.launches
-        step = self.cheb_bsr.cheb_step_cuda.launches
-        self.union += union
-        self.step += step
-        return out, union, step
+        launched = self.cheb_bsr.launch_counts()
+        self.union += launched[0]
+        self.step += launched[1]
+        self.adjoint += launched[2]
+        return out, launched
 
 
 def expect_launches(what: str, got: tuple, want: tuple) -> None:
-    require(got == want, f"{what}: launches (union, step) {got}, want {want}")
+    """``got``'s leading counts (union, step[, adjoint]) equal ``want``."""
+    names = ("union", "step", "adjoint")[:len(want)]
+    got = tuple(got[:len(want)])
+    require(got == want, f"{what}: launches ({', '.join(names)}) {got}, want {want}")
 
 
 def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
@@ -538,29 +552,31 @@ def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
 
     runs = {}
     for method in ("ista", "fista"):
-        res, u, s = count(lambda m=method: getattr(solvers, m)(lasso, n_iters=150, backend="bsr"))
-        expect_launches(f"{method} 150", (u, s), (res.iterations + 1, 0))
+        res, launched = count(
+            lambda m=method: getattr(solvers, m)(lasso, n_iters=150, backend="bsr"))
+        expect_launches(f"{method} 150", launched,
+                        (res.iterations + 1, 0, res.iterations + 1))
         runs[method] = res
     target = float(runs["ista"].history.min())
     hits = {}
     for method, res in runs.items():
         hit = (res.history <= target).nonzero()[0]
         hits[method] = int(hit[0]) if hit.size else 150
-    (ista40, fista20), u, s = count(lambda: (solvers.ista(lasso, n_iters=40, backend="bsr"),
+    (ista40, fista20), launched = count(lambda: (solvers.ista(lasso, n_iters=40, backend="bsr"),
                                              solvers.fista(lasso, n_iters=20, backend="bsr")))
-    expect_launches("ista 40 + fista 20", (u, s), (41 + 21, 0))
+    expect_launches("ista 40 + fista 20", launched, (41 + 21, 0, 41 + 21))
     obj_i, obj_f = lasso.objective(ista40.aux), lasso.objective(fista20.aux)
     half_wins = obj_f <= obj_i * (1.0 + 1e-4)
     require(half_wins, f"fista_at_half_wins: FISTA-20 {obj_f:.4f} > ISTA-40 {obj_i:.4f}")
     say(f"[solvers] paper N={PAPER_N} eta={filt.eta} M={ORDER} mu={PAPER_MU} bsr: iterations to "
         f"ISTA-150's best objective {target:.4f}: ista {hits['ista']}, fista {hits['fista']}; "
         f"objective ISTA-40 {obj_i:.4f} FISTA-20 {obj_f:.4f} fista_at_half_wins={int(half_wins)}; "
-        f"launches union = iterations + 1 per solve")
+        f"launches union = adjoint = iterations + 1 per solve")
 
-    ista_b, u, s = count(lambda: solvers.ista(lasso, n_iters=10, backend="bsr"))
-    expect_launches("ista 10 bsr", (u, s), (11, 0))
-    ista_d, u, s = count(lambda: solvers.ista(lasso, n_iters=10, backend="dense"))
-    expect_launches("ista 10 dense", (u, s), (0, 0))
+    ista_b, launched = count(lambda: solvers.ista(lasso, n_iters=10, backend="bsr"))
+    expect_launches("ista 10 bsr", launched, (11, 0, 11))
+    ista_d, launched = count(lambda: solvers.ista(lasso, n_iters=10, backend="dense"))
+    expect_launches("ista 10 dense", launched, (0, 0, 0))
     dx = maxdiff(ista_b.x, ista_d.x)
     dh = float(abs(ista_b.history - ista_d.history).max())
     require(bool(torch.allclose(ista_b.x, ista_d.x, rtol=SOLVER_X_TOL, atol=SOLVER_X_TOL)),
@@ -576,23 +592,23 @@ def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
         o = filt.apply(f0, backend="bsr")
         return o, filt.adjoint(o, backend="bsr")
 
-    (obs, b), u, s = count(observe)
-    expect_launches("observe + adjoint", (u, s), (1, 0))
+    (obs, b), launched = count(observe)
+    expect_launches("observe + adjoint", launched, (1, 0, 1))
     gram = solvers.GramProblem(filt=filt, b=b, reg=1e-6)
-    cg, u, s = count(lambda: solvers.conjugate_gradient(gram, n_iters=150, tol=SOLVER_TOL,
+    cg, launched = count(lambda: solvers.conjugate_gradient(gram, n_iters=150, tol=SOLVER_TOL,
                                                         backend="bsr"))
-    expect_launches("cg", (u, s), (cg.iterations + 1, 0))
+    expect_launches("cg", launched, (cg.iterations + 1, 0, 0))
     require(cg.converged, f"cg did not converge in 150 ({cg.history[-1]:.2e})")
     cg_err = maxdiff(cg.x, f0)
     pre = solvers.cheb_preconditioner(gram, order=32, backend="bsr")
-    pcg, u, s = count(lambda: solvers.conjugate_gradient(
+    pcg, launched = count(lambda: solvers.conjugate_gradient(
         gram, n_iters=150, tol=SOLVER_TOL, backend="bsr", preconditioner=pre))
-    expect_launches("pcg", (u, s), (2 * pcg.iterations + 2, 0))
+    expect_launches("pcg", launched, (2 * pcg.iterations + 2, 0))
     pcg_halves = pcg.converged and pcg.iterations <= cg.iterations // 2
     require(pcg_halves, f"pcg_halves: pcg {pcg.iterations} vs cg {cg.iterations}")
-    inv, u, s = count(lambda: solvers.cheb_inverse(gram, order=16, n_iters=150, tol=SOLVER_TOL,
+    inv, launched = count(lambda: solvers.cheb_inverse(gram, order=16, n_iters=150, tol=SOLVER_TOL,
                                                    backend="bsr"))
-    expect_launches("cheb_inverse", (u, s), (2 * inv.iterations + 1, 0))
+    expect_launches("cheb_inverse", launched, (2 * inv.iterations + 1, 0))
     predicted = math.ceil(math.log(SOLVER_TOL) / math.log(inv.aux.rate))
     require(inv.converged and inv.iterations <= predicted + 5,
             f"cheb_inverse {inv.iterations} iterations, predicted {predicted} (+5)")
@@ -604,27 +620,28 @@ def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
         f"cheb_inverse {2 * inv.iterations + 1}")
 
     # The step kernel on the solver path: the same CG on the stepwise route.
-    cg_s, u, s = count(lambda: solvers.conjugate_gradient(gram, n_iters=150, tol=SOLVER_TOL,
+    cg_s, launched = count(lambda: solvers.conjugate_gradient(gram, n_iters=150, tol=SOLVER_TOL,
                                                           backend="bsr", fuse=False))
-    expect_launches("cg fuse=False", (u, s), (0, 2 * ORDER * (cg_s.iterations + 1)))
+    expect_launches("cg fuse=False", launched, (0, 2 * ORDER * (cg_s.iterations + 1)))
     d_step = maxdiff(cg_s.x, cg.x)
     require(cg_s.iterations == cg.iterations and d_step <= SOLVER_X_TOL,
             f"cg stepwise {cg_s.iterations} iterations, fused {cg.iterations}; |dx| {d_step:.2e}")
     say(f"[solvers] paper CG fuse=False: {cg_s.iterations} iterations, max|x - fused x| "
-        f"{d_step:.2e} (tol {SOLVER_X_TOL:g}); launches step {s} = 2M x (iterations + 1)")
+        f"{d_step:.2e} (tol {SOLVER_X_TOL:g}); launches step {launched[1]} = 2M x (iterations + 1)")
 
     # The three apps.
-    den, u, s = count(lambda: apps.wavelet_denoise_ista(
+    den, launched = count(lambda: apps.wavelet_denoise_ista(
         g, y, lmax, n_scales=PAPER_SCALES, order=ORDER, mu=PAPER_MU, backend="bsr",
         full_output=True))
-    expect_launches("wavelet_denoise_ista", (u, s), (den.iterations + 1, 0))
-    wie, u, s = count(lambda: apps.denoise_wiener(g, y, lmax, noise_power=0.25, order=ORDER,
+    expect_launches("wavelet_denoise_ista", launched,
+                    (den.iterations + 1, 0, den.iterations + 1))
+    wie, launched = count(lambda: apps.denoise_wiener(g, y, lmax, noise_power=0.25, order=ORDER,
                                                   backend="bsr", full_output=True))
-    expect_launches("denoise_wiener", (u, s), (wie.iterations + 2, 0))
-    rec, u, s = count(lambda: apps.inverse_filter(
+    expect_launches("denoise_wiener", launched, (wie.iterations + 2, 0, 0))
+    rec, launched = count(lambda: apps.inverse_filter(
         g, obs, lmax, bank=bank, order=ORDER, reg=1e-6, n_iters=150, tol=SOLVER_TOL,
         backend="bsr", full_output=True))
-    expect_launches("inverse_filter", (u, s), (rec.iterations + 1, 0))
+    expect_launches("inverse_filter", launched, (rec.iterations + 1, 0, 1))
     mse_ista, mse_wiener = mse(den.x, f0), mse(wie.x, f0)
     require(mse_ista < noisy and mse_wiener < noisy and wie.converged,
             f"denoisers: noisy {noisy:.4f}, ista {mse_ista:.4f}, wiener {mse_wiener:.4f}")
@@ -655,20 +672,20 @@ def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     deploy = solvers.LassoProblem(filt=deploy_filt, y=deploy_signal, mu=PAPER_MU)
-    fb, u, s = count(lambda: solvers.fista(deploy, n_iters=10, backend="bsr"))
-    expect_launches("deploy fista 10 bsr", (u, s), (11, 0))
-    fd, u, s = count(lambda: solvers.fista(deploy, n_iters=10, backend="dense"))
-    expect_launches("deploy fista 10 dense", (u, s), (0, 0))
+    fb, launched = count(lambda: solvers.fista(deploy, n_iters=10, backend="bsr"))
+    expect_launches("deploy fista 10 bsr", launched, (11, 0, 11))
+    fd, launched = count(lambda: solvers.fista(deploy, n_iters=10, backend="dense"))
+    expect_launches("deploy fista 10 dense", launched, (0, 0, 0))
     dfx, dfa = maxdiff(fb.x, fd.x), maxdiff(fb.aux, fd.aux)
     require(max(dfx, dfa) < AGREE_TOL and bool(torch.isfinite(fb.x).all()),
             f"deploy fista bsr vs dense x {dfx:.2e} a {dfa:.2e}")
-    wd, u, s = count(lambda: solvers.wiener(deploy_filt, deploy_signal, 0.25, n_iters=50,
+    wd, launched = count(lambda: solvers.wiener(deploy_filt, deploy_signal, 0.25, n_iters=50,
                                             tol=SOLVER_TOL, backend="bsr"))
-    expect_launches("deploy wiener", (u, s), (wd.iterations + 2, 0))
+    expect_launches("deploy wiener", launched, (wd.iterations + 2, 0))
     require(wd.converged, f"deploy wiener did not converge in 50 ({wd.history[-1]:.2e})")
-    wdd, u, s = count(lambda: solvers.wiener(deploy_filt, deploy_signal, 0.25, n_iters=50,
+    wdd, launched = count(lambda: solvers.wiener(deploy_filt, deploy_signal, 0.25, n_iters=50,
                                              tol=SOLVER_TOL, backend="dense"))
-    expect_launches("deploy wiener dense", (u, s), (0, 0))
+    expect_launches("deploy wiener dense", launched, (0, 0))
     dwx = maxdiff(wd.x, wdd.x)
     require(wdd.converged and dwx < AGREE_TOL,
             f"deploy wiener bsr vs dense: {wd.iterations} vs {wdd.iterations} iterations, "
@@ -677,7 +694,7 @@ def solver_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal,
     n, f = deploy_signal.shape
     say(f"[solvers] deploy N={n} F={f} eta={deploy_filt.eta} M={deploy_filt.order}: FISTA-10 "
         f"bsr vs dense max|dx| {dfx:.2e} max|da| {dfa:.2e} (tol {AGREE_TOL:g}), launches union "
-        f"11; wiener noise_power=0.25 tol={SOLVER_TOL:g}: {wd.iterations} iterations, "
+        f"11, adjoint 11; wiener noise_power=0.25 tol={SOLVER_TOL:g}: {wd.iterations} iterations, "
         f"converged, launches union {wd.iterations + 2}; dense {wdd.iterations} iterations, "
         f"bsr vs dense max|dx| {dwx:.2e} (tol {AGREE_TOL:g}); peak device memory "
         f"{peak / 2**20:.0f} MiB")
@@ -952,8 +969,8 @@ def multishift_phase(dev, count: LaunchCounter, check_union, check_step) -> dict
             ("bsr", "bsr", {"fuse": True}, (small.orders[0] + 1, 0)),
             ("bsr_stepwise", "bsr", {"fuse": False}, (0, small_counts[1])),
             ("halo", "halo", {"mesh": StackedMesh(N_PARTS, dev)}, (0, 0))):
-        out, u, st = count(lambda: small.apply(x, backend=backend, **opts))
-        expect_launches(f"multishift small {name}", (u, st), launches)
+        out, launched = count(lambda: small.apply(x, backend=backend, **opts))
+        expect_launches(f"multishift small {name}", launched, launches)
         small_errs[name] = err_to(oracle, out)
         require(small_errs[name] < MS_SMALL_TOL,
                 f"multishift small {name} vs oracle {small_errs[name]:.2e}")
@@ -1003,9 +1020,9 @@ def multishift_phase(dev, count: LaunchCounter, check_union, check_step) -> dict
             ("bsr_stepwise", lambda: filt.apply(signal, backend="bsr", fuse=False),
              (0, counts[1])),
             ("halo", lambda: filt.apply(signal, backend="halo", mesh=mesh), (0, 0))):
-        out, u, st = count(call)
+        out, launched = count(call)
         torch.cuda.synchronize()
-        expect_launches(f"multishift deploy {name}", (u, st), launches)
+        expect_launches(f"multishift deploy {name}", launched, launches)
         require(out.shape == (filt.eta, n, DEPLOY_F) and bool(torch.isfinite(out).all()),
                 f"multishift {name} output")
         outs[name] = out
@@ -1029,14 +1046,14 @@ def multishift_phase(dev, count: LaunchCounter, check_union, check_step) -> dict
         require(v < AGREE_TOL, f"multishift deploy {k} vs oracle {v:.2e}")
     del oracle
     a = torch.randn(filt.eta, n, DEPLOY_F, generator=torch.Generator().manual_seed(23)).to(dev)
-    back, u, st = count(lambda: filt.adjoint(a, backend="bsr"))
-    expect_launches("multishift bsr adjoint", (u, st), (0, 0))
+    back, launched = count(lambda: filt.adjoint(a, backend="bsr"))
+    expect_launches("multishift bsr adjoint", launched, (0, 0, 0))
     lhs = float((outs["bsr"].double() * a.double()).sum())
     rhs = float((signal.double() * back.double()).sum())
     adj_rel = abs(lhs - rhs) / abs(rhs)
     require(adj_rel <= ADJOINT_RTOL, f"multishift bsr adjoint identity {adj_rel:.2e}")
-    gram, u, st = count(lambda: filt.gram(signal, backend="bsr"))
-    expect_launches("multishift bsr gram", (u, st), (2 * m1 + 1, 0))
+    gram, launched = count(lambda: filt.gram(signal, backend="bsr"))
+    expect_launches("multishift bsr gram", launched, (2 * m1 + 1, 0))
     composed = filt.adjoint(outs["bsr"], backend="bsr")
     gram_err = (gram - composed).abs()
     require(bool((gram_err <= GRAM_TOL + GRAM_TOL * composed.abs()).all()),
@@ -1067,13 +1084,13 @@ def multishift_phase(dev, count: LaunchCounter, check_union, check_step) -> dict
     pre = solvers.cheb_preconditioner(prob, order=6, backend="bsr")
     require(pre.rate < 1.0, f"multishift preconditioner rate {pre.rate:.4f}")
     k1 = pre.orders[0]
-    pcg, u, st = count(lambda: solvers.conjugate_gradient(
+    pcg, launched = count(lambda: solvers.conjugate_gradient(
         prob, n_iters=300, tol=SOLVER_TOL, backend="bsr", preconditioner=pre))
     require(pcg.converged, f"multishift pcg did not converge ({pcg.history[-1]:.2e})")
-    expect_launches("multishift pcg", (u, st), ((pcg.iterations + 1) * (2 * m1 + 1 + k1 + 1), 0))
-    cg, u, st = count(lambda: solvers.conjugate_gradient(prob, n_iters=1000, tol=SOLVER_TOL,
+    expect_launches("multishift pcg", launched, ((pcg.iterations + 1) * (2 * m1 + 1 + k1 + 1), 0))
+    cg, launched = count(lambda: solvers.conjugate_gradient(prob, n_iters=1000, tol=SOLVER_TOL,
                                                          backend="bsr"))
-    expect_launches("multishift cg", (u, st), ((cg.iterations + 1) * (2 * m1 + 1), 0))
+    expect_launches("multishift cg", launched, ((cg.iterations + 1) * (2 * m1 + 1), 0))
     require(cg.converged and pcg.iterations < cg.iterations,
             f"multishift cg {cg.iterations} ({cg.converged}), pcg {pcg.iterations}")
     scale_x = float(cg.x.abs().max())
@@ -1187,12 +1204,12 @@ def push_series(make_lane, steps, count: LaunchCounter, check=None):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        res, u, st = count(lambda: lane.push(y, delta=delta))
+        res, launched = count(lambda: lane.push(y, delta=delta))
         stop.record()
         stop.synchronize()
         recs.append({"mode": res.mode, "changed": res.changed, "active": res.active,
                      "words": res.words, "ms": start.elapsed_time(stop),
-                     "host_ms": res.host_s * 1e3, "union": u, "step": st})
+                     "host_ms": res.host_s * 1e3, "union": launched[0], "step": launched[1]})
         if check is not None:
             check(i, res)
     replay = make_lane()
@@ -1270,8 +1287,8 @@ def stream_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal, check_un
     lane = StreamingFilter(gfilt, backend="dense", n_parts=STREAM_PARTS, max_delta_frac=0.5,
                            device=dev)
     plan_s = time.perf_counter() - t0
-    first, u, st = count(lambda: lane.push(f0_t))
-    expect_launches("stream grid full frame dense", (u, st), (0, 0))
+    first, launched = count(lambda: lane.push(f0_t))
+    expect_launches("stream grid full frame dense", launched, (0, 0))
     require(first.mode == "full" and first.words == lane._full_words() == STREAM_FULL_WORDS,
             f"tab_streaming full words {first.words}, want {STREAM_FULL_WORDS}")
     rows = []
@@ -1279,8 +1296,8 @@ def stream_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal, check_un
         y_t = upload(patches[patch][0])
         lane.reset()
         lane.push(f0_t)
-        res, u, st = count(lambda: lane.push(y_t))
-        expect_launches(f"stream grid delta patch {patch} dense", (u, st), (0, 0))
+        res, launched = count(lambda: lane.push(y_t))
+        expect_launches(f"stream grid delta patch {patch} dense", launched, (0, 0))
         parity = err(res.out, gfilt.apply(y_t, backend="dense"))
         got = (res.changed, res.active, res.words)
         require(res.mode == "delta" and got == want,
@@ -1301,11 +1318,11 @@ def stream_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal, check_un
     bsr_rows, bsr_err = [], 0.0
     for y in frames:
         y_t = upload(y)
-        res, u, st = count(lambda: blane.push(y_t))
+        res, launched = count(lambda: blane.push(y_t))
         want = (0, 0) if res.mode == "cached" else (1, 0)
-        expect_launches(f"stream grid bsr {res.mode} frame", (u, st), want)
+        expect_launches(f"stream grid bsr {res.mode} frame", launched, want)
         bsr_err = max(bsr_err, err(res.out, gfilt.apply(y_t, backend="dense")))
-        bsr_rows.append(f"{res.mode} {u}")
+        bsr_rows.append(f"{res.mode} {launched[0]}")
     require([r.split()[0] for r in bsr_rows] == ["full", "delta", "cached", "delta", "delta",
                                                  "delta"], f"bsr stream modes {bsr_rows}")
     require(bsr_err <= BSR_DENSE_TOL, f"bsr stream vs dense {bsr_err:.2e}")
@@ -1435,9 +1452,9 @@ def stream_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal, check_un
     lasso_rows, prev_cold = [], None
     for i, y in enumerate(lasso_frames):
         y_t = upload(y)
-        warm, u, st = count(lambda: slane.push(y_t))
+        warm, launched = count(lambda: slane.push(y_t))
         # a warm solve starts from the carried coefficients: no a0 = Phi~ y
-        expect_launches(f"streaming lasso frame {i}", (u, st), (warm.iterations + (i == 0), 0))
+        expect_launches(f"streaming lasso frame {i}", launched, (warm.iterations + (i == 0), 0))
         problem = solvers.LassoProblem(filt=pfilt, y=y_t, mu=PAPER_MU)
         if i == 0:
             require(warm.converged, f"streaming lasso cold frame: {warm.iterations} iterations")
@@ -1445,16 +1462,16 @@ def stream_phase(dev, count: LaunchCounter, deploy_filt, deploy_signal, check_un
                               f"{problem.objective(warm.aux):.4f})")
             prev_cold = warm.aux
             continue
-        cold, u, st = count(lambda: solvers.fista(problem, n_iters=LASSO_BUDGET, tol=LASSO_TOL,
+        cold, launched = count(lambda: solvers.fista(problem, n_iters=LASSO_BUDGET, tol=LASSO_TOL,
                                                   backend="bsr"))
-        expect_launches(f"cold lasso frame {i}", (u, st), (cold.iterations + 1, 0))
+        expect_launches(f"cold lasso frame {i}", launched, (cold.iterations + 1, 0))
         ow, oc = float(problem.objective(warm.aux)), float(problem.objective(cold.aux))
         require(warm.converged and cold.converged and warm.iterations <= cold.iterations,
                 f"streaming lasso frame {i}: warm {warm.iterations} cold {cold.iterations}")
         budget = cold.iterations // 2
-        seeded, u, st = count(lambda: solvers.fista(problem, a0=prev_cold, n_iters=budget,
+        seeded, launched = count(lambda: solvers.fista(problem, a0=prev_cold, n_iters=budget,
                                                     backend="bsr"))
-        expect_launches(f"seeded lasso frame {i}", (u, st), (budget, 0))
+        expect_launches(f"seeded lasso frame {i}", launched, (budget, 0))
         target = float(cold.history[-1]) * (1.0 + 1e-6)
         hit = np.nonzero(seeded.history <= target)[0]
         require(hit.size > 0, f"streaming lasso frame {i}: seeded FISTA did not reach the cold "
@@ -1785,9 +1802,9 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
         return [statistics.median(p[i] for p in parts) for i in range(3)]
 
     def graph_launches(what, prog, want):
-        """The union and step kernel nodes of ``prog``'s recorded graph,
-        read from the graph, must equal what each replay adds to the
-        launch counters and ``want``."""
+        """The union, step and adjoint kernel nodes of ``prog``'s recorded
+        graph, read from the graph, must equal what each replay adds to
+        the launch counters and ``want``."""
         nodes = graph_kernel_nodes(prog.graph)
         require(nodes == prog.launches_per_replay == want,
                 f"{what}: kernel nodes {nodes}, counted per replay "
@@ -1807,12 +1824,11 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
         panel = upload(pack(rows, b), dev)
         prog = filt.panel_program(backend="bsr", donate=True)
         require(isinstance(prog, CudaGraphProgram), f"bucket {b}: no CUDA graph program")
-        first, u, s = count(lambda: prog(panel).clone())
-        require((u, s) == (2, 0), f"bucket {b}: first call launched {(u, s)} (want warm-up + replay)")
-        again, u, s = count(lambda: prog(panel).clone())
-        require((u, s) == (1, 0) and prog.launches_per_replay == (1, 0),
-                f"bucket {b}: a replay launched {(u, s)}, want (1, 0)")
-        graph_launches(f"bucket {b} program", prog, (1, 0))
+        first, launched = count(lambda: prog(panel).clone())
+        expect_launches(f"bucket {b}: first call (warm-up + replay)", launched, (2, 0, 0))
+        again, launched = count(lambda: prog(panel).clone())
+        expect_launches(f"bucket {b}: a replay", launched, (1, 0, 0))
+        graph_launches(f"bucket {b} program", prog, (1, 0, 0))
         eager = filt.apply(panel, backend="bsr")
         fresh = upload(pack(pool[rng.integers(0, len(pool), b)], b), dev)
         d_eager = max(err(first, eager), err(again, eager),
@@ -1861,12 +1877,12 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
     panel, fused_out = fused128
     b = panel.shape[1]
     sprog = filt.panel_program(backend="bsr", donate=True, fuse=False)
-    step_out, u, s = count(lambda: sprog(panel).clone())
-    require((u, s) == (0, 2 * filt.order), f"stepwise program first call launched {(u, s)}")
-    step_out, u, s = count(lambda: sprog(panel).clone())
-    require((u, s) == (0, filt.order) and sprog.captures == 1,
-            f"stepwise program replay launched {(u, s)}, want (0, {filt.order})")
-    graph_launches("stepwise program", sprog, (0, filt.order))
+    step_out, launched = count(lambda: sprog(panel).clone())
+    expect_launches("stepwise program first call", launched, (0, 2 * filt.order, 0))
+    step_out, launched = count(lambda: sprog(panel).clone())
+    expect_launches("stepwise program replay", launched, (0, filt.order, 0))
+    require(sprog.captures == 1, f"stepwise program: {sprog.captures} captures")
+    graph_launches("stepwise program", sprog, (0, filt.order, 0))
     d_sf = err(step_out, fused_out)
     require(d_sf <= SOLO_TOL, f"stepwise vs fused program {d_sf:.3e}")
     t1 = panel[state.perm].contiguous()
@@ -1903,18 +1919,20 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
             eng.drain(now=0.0)
             return tickets
 
-        tickets, u, s = count(first_panel)
-        want_l = (2 * (SERVE_ITERS + 1), 0)
-        require((u, s) == want_l, f"solve bucket {b}: first panel launched {(u, s)}")
+        tickets, launched = count(first_panel)
+        want_l = (2 * (SERVE_ITERS + 1), 0, 2 * (SERVE_ITERS + 1))
+        expect_launches(f"solve bucket {b}: first panel", launched, want_l)
         sp = eng.cache.programs()[("solve", "bsr", n, b)]
         prog = sp.program
         require(isinstance(prog, CudaGraphProgram) and prog.captures == 1,
                 f"solve bucket {b}: not recorded once")
         x0 = torch.stack([tk.result.x for tk in tickets], dim=1)
-        (x1, a1, h1), u, s = count(lambda: tuple(t.clone() for t in prog(panel)))
-        require((u, s) == (SERVE_ITERS + 1, 0) and prog.captures == 1,
-                f"solve bucket {b}: replay launched {(u, s)}")
-        graph_launches(f"solve bucket {b} program", prog, (SERVE_ITERS + 1, 0))
+        (x1, a1, h1), launched = count(lambda: tuple(t.clone() for t in prog(panel)))
+        expect_launches(f"solve bucket {b}: replay", launched,
+                        (SERVE_ITERS + 1, 0, SERVE_ITERS + 1))
+        require(prog.captures == 1, f"solve bucket {b}: {prog.captures} captures")
+        graph_launches(f"solve bucket {b} program", prog,
+                       (SERVE_ITERS + 1, 0, SERVE_ITERS + 1))
         xe, ae, he = prog.fn(panel)
         d_eager = max(err(x0, xe.cpu()), err(x1, xe), err(a1, ae))
         require(d_eager <= SOLO_TOL, f"solve bucket {b}: replay vs eager {d_eager:.3e}")
@@ -1937,8 +1955,8 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
                              "upload_ms": up, "copy_ms": cb, "syncs": syncs}
         lines.append(f"b={b}: eager {eager_ms:.3f} ms replay {replay_ms:.3f} ms, host pack "
                      f"{pk:.3f} upload {up:.3f} copy back {cb:.3f} ms, syncs {syncs}; "
-                     f"|replay-eager| {d_eager:.1e} |x-fista| {d_solo:.1e}, union launches "
-                     f"{SERVE_ITERS + 1} per replay, memory flat at {base} B")
+                     f"|replay-eager| {d_eager:.1e} |x-fista| {d_solo:.1e}, union and adjoint "
+                     f"launches {SERVE_ITERS + 1} each per replay, memory flat at {base} B")
     say(f"[serve] FISTA-{SERVE_ITERS} solve programs: " + "; ".join(lines))
 
     out["programs_s"] = time.perf_counter() - t_phase
@@ -1960,14 +1978,16 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
     sync = GraphFilterEngine(filt, backend="bsr", panel_width=width, device=dev,
                              solver=lasso_panel_solver(filt, mu=1.0, n_iters=SERVE_ITERS))
     panels = -(-SERVE_REQUESTS // width)
-    applies, u, s = count(lambda: feed(sync.submit, sync.flush, [(r,) for r in reqs]))
-    require((u, s) == (panels, 0), f"sync applies launched {(u, s)}, want ({panels}, 0)")
+    applies, launched = count(lambda: feed(sync.submit, sync.flush, [(r,) for r in reqs]))
+    expect_launches("sync applies", launched, (panels, 0, 0))
     d_apply = max(err(a, filt.apply(torch.as_tensor(r).to(dev), backend="bsr").cpu())
                   for a, r in zip(applies, reqs))
     require(len(applies) == SERVE_REQUESTS and d_apply <= SOLO_TOL,
             f"sync applies vs solo {d_apply:.3e}")
-    solves, u, s = count(lambda: feed(sync.submit_solve, sync.flush_solves, [(r,) for r in reqs]))
-    require((u, s) == (panels * (SERVE_ITERS + 1), 0), f"sync solves launched {(u, s)}")
+    solves, launched = count(
+        lambda: feed(sync.submit_solve, sync.flush_solves, [(r,) for r in reqs]))
+    expect_launches("sync solves", launched,
+                    (panels * (SERVE_ITERS + 1), 0, panels * (SERVE_ITERS + 1)))
     d_solve = 0.0
     for res, r in zip(solves, reqs):
         solo = fista(LassoProblem(filt=filt, y=torch.as_tensor(r).to(dev), mu=1.0),
@@ -1980,10 +2000,10 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
     frames = [(i % SERVE_FRAME_STREAMS,
                pool[(i % SERVE_FRAME_STREAMS + (i // SERVE_FRAME_STREAMS) // 2) % len(pool)])
               for i in range(SERVE_REQUESTS)]
-    results, u, s = count(lambda: feed(sync.submit_frame, sync.flush_frames, frames))
+    results, launched = count(lambda: feed(sync.submit_frame, sync.flush_frames, frames))
     filtered = sum(r.mode != "cached" for r in results)
-    require((u, s) == (filtered, 0) and 0 < filtered < SERVE_REQUESTS,
-            f"sync frames launched {(u, s)} for {filtered} filtered frames")
+    expect_launches(f"sync frames ({filtered} filtered)", launched, (filtered, 0))
+    require(0 < filtered < SERVE_REQUESTS, f"sync frames: {filtered} filtered")
     solo_lanes = {}
     d_frame = 0.0
     for (sid, fr), res in zip(frames, results):
@@ -2018,23 +2038,25 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
     for kind, burst in (("paced", False), ("burst", True)):
         trace = make_trace(SERVE_STREAMS, SERVE_SECONDS, SERVE_RATE, seed=0, burst=burst)
         eng = make_async()
-        warm, u, s = count(lambda: drive_async(eng, trace, pool, SERVE_FRAME_STREAMS))
+        warm, launched = count(lambda: drive_async(eng, trace, pool, SERVE_FRAME_STREAMS))
         # Each program's graph holds its lane's launches per panel, and a
         # new program's first call adds its eager warm-up run.
         for key, prog in eng.cache.programs().items():
-            want_l = (1, 0) if key[0] == "apply" else (SERVE_ITERS + 1, 0)
+            want_l = (1, 0, 0) if key[0] == "apply" else (SERVE_ITERS + 1, 0, SERVE_ITERS + 1)
             graph_launches(f"{kind} {key}", getattr(prog, "program", prog), want_l)
         warm_ups = sum(1 if key[0] == "apply" else SERVE_ITERS + 1 for key in eng.cache.programs())
-        require((u, s) == (lane_launches(warm) + warm_ups, 0),
-                f"{kind} warm replay launched {(u, s)}, want ({lane_launches(warm) + warm_ups}, 0)")
-        rep, u, s = count(lambda: drive_async(eng, trace, pool, SERVE_FRAME_STREAMS))
+        solve_warm_ups = sum(SERVE_ITERS + 1 for key in eng.cache.programs() if key[0] == "solve")
+        expect_launches(f"{kind} warm replay", launched,
+                        (lane_launches(warm) + warm_ups, 0,
+                         warm["solves"] * (SERVE_ITERS + 1) + solve_warm_ups))
+        rep, launched = count(lambda: drive_async(eng, trace, pool, SERVE_FRAME_STREAMS))
         require(rep["served"] == rep["requests"] and rep["rejected"] == 0,
                 f"{kind}: served {rep['served']} of {rep['requests']}, rejected {rep['rejected']}")
         require(rep["recompiles"] == 0 and rep["captures"] == 0,
                 f"{kind} measured replay: {rep['recompiles']} recompiles, "
                 f"{rep['captures']} captures")
-        require((u, s) == (lane_launches(rep), 0),
-                f"{kind} measured replay launched {(u, s)}, want ({lane_launches(rep)}, 0)")
+        expect_launches(f"{kind} measured replay", launched,
+                        (lane_launches(rep), 0, rep["solves"] * (SERVE_ITERS + 1)))
         box = {}
 
         def profiled():
@@ -2043,11 +2065,11 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
             torch.cuda.synchronize()
             box["wall_ms"] = (time.perf_counter() - t0) * 1e3
 
-        (busy_ms, traced), pu, _ = count(lambda: kernel_profile_once(profiled))
+        (busy_ms, traced), profiled_launches = count(lambda: kernel_profile_once(profiled))
         rep["idle"] = max(0.0, 1 - busy_ms / box["wall_ms"])
         rep["kernel_ms"], rep["wall_ms"] = busy_ms, box["wall_ms"]
         rep["warm_recompiles"] = warm["recompiles"]
-        rep["union"] = u
+        rep["union"] = launched[0]
         reports[kind] = rep
         capacity = f"capacity {rep['served'] / rep['busy_s']:.0f} req/s (busy {rep['busy_s']:.3f} s)"
         if burst:
@@ -2056,7 +2078,7 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
                 filt, backend="bsr", panel_width=width, device=dev,
                 solver=lasso_panel_solver(filt, mu=1.0, n_iters=SERVE_ITERS))
             count(lambda: drive_sync(sync_eng, trace, pool, SERVE_FRAME_STREAMS))
-            srep, _, _ = count(lambda: drive_sync(sync_eng, trace, pool, SERVE_FRAME_STREAMS))
+            srep, _ = count(lambda: drive_sync(sync_eng, trace, pool, SERVE_FRAME_STREAMS))
             rep["sync"] = srep
             capacity += (f", sync engine width {width} {srep['served'] / srep['busy_s']:.0f} req/s "
                          f"(busy {srep['busy_s']:.3f} s, latency {pct_ms(srep['lat'])})")
@@ -2066,8 +2088,9 @@ def serve_phase(dev, count: LaunchCounter, deploy_filt) -> dict:
             f"{warm['recompiles']} (= captures {warm['captures']}), measured replay recompiles "
             f"{rep['recompiles']} captures {rep['captures']}; panels apply {rep['applies']} "
             f"solve {rep['solves']}, frames {rep['frames_served']} ({rep['frames_filtered']} "
-            f"filtered); union launches {u} = sum over panels, each program's graph holding its "
-            f"lane's kernel nodes (a profiled replay traced {traced[0]} of its {pu}); latency apply "
+            f"filtered); union launches {launched[0]} = sum over panels, each program's graph "
+            f"holding its lane's kernel nodes (a profiled replay traced {traced[0]} of its "
+            f"{profiled_launches[0]}); latency apply "
             f"{pct_ms(rep['lat']['apply'])}, solve {pct_ms(rep['lat']['solve'])}, frame "
             f"{pct_ms(rep['lat']['frame'])}; {capacity}; pad_waste {rep['pad_waste']:.3f}, streams_evicted "
             f"{rep['streams_evicted']}; device idle share over a replay {rep['idle']:.0%} "
@@ -3099,6 +3122,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch.core import chebyshev as tcheb
     from repro_torch.core import graph as tgraph
     from repro_torch.core import multipliers as tmult
     from repro_torch.filters import GraphFilter
@@ -3129,9 +3153,9 @@ def main() -> int:
     load_library()
     say(f"[build] nvcc sm_90a build+load {time.perf_counter() - t0:.1f} s")
     ptxas = parse_ptxas_report(build_report())
-    builds = {"cheb_union_kernel": 0, "cheb_step_strip_kernel": 0}
+    builds = {"cheb_union_kernel": 0, "cheb_step_strip_kernel": 0, "cheb_adjoint_union_kernel": 0}
     for name, info in sorted(ptxas.items()):
-        m = re.search(r"(cheb_(?:union|step|step_strip)_kernel)I(.*?)EEv", name)
+        m = re.search(r"(cheb_(?:adjoint_union|union|step|step_strip)_kernel)I(.*?)EEv", name)
         label = f"{m.group(1)}<{m.group(2)}>" if m else name
         say(f"[build] ptxas {label}: {info['registers']} registers, spill stores "
             f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
@@ -3143,6 +3167,8 @@ def main() -> int:
             "union kernels (want B 8, 16 x f32, bf16 Krylov)")
     require(builds["cheb_step_strip_kernel"] == 8, f"ptxas reported "
             f"{builds['cheb_step_strip_kernel']} step strip kernels (want B 8, 16 x 4 dtypes)")
+    require(builds["cheb_adjoint_union_kernel"] == 2, f"ptxas reported "
+            f"{builds['cheb_adjoint_union_kernel']} adjoint kernels (want B 8, 16)")
 
     # ---- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -3189,6 +3215,21 @@ def main() -> int:
                 f"cheb_union {where} bf16 krylov: rel {rel_plain:.3e} / {rel_f32:.3e}")
         say(f"[kernels] cheb_union {where} bf16-krylov rel err vs plain-bf16 {rel_plain:.3e}, "
             f"vs f32 {rel_f32:.3e} (bound {BF16_REL_BOUND:.4f}) ok")
+        return float(err.max())
+
+    def check_adjoint(blocks, cols, a, coeffs, lmax, where, f_tile=None):
+        before = cheb_bsr.launch_counts()
+        got = cheb_bsr.cheb_adjoint_union_cuda(blocks, cols, a, coeffs=coeffs, lmax=lmax,
+                                               f_tile=f_tile)
+        torch.cuda.synchronize()
+        require(cheb_bsr.launch_counts() == (before[0], before[1], before[2] + 1),
+                f"cheb_adjoint_union {where}: launches {before} -> {cheb_bsr.launch_counts()}")
+        want = tref.cheb_adjoint_union_ref(blocks, cols, a, coeffs, lmax)
+        err = (got - want).abs()
+        ok = bool((err <= ADJOINT_KERNEL_TOL + ADJOINT_KERNEL_TOL * want.abs()).all())
+        require(ok, f"cheb_adjoint_union {where}: max err {err.max():.3e}")
+        say(f"[kernels] cheb_adjoint_union {where} max|kernel-plain| {float(err.max()):.3e} "
+            f"of max|plain| {float(want.abs().max()):.3f} (tol {ADJOINT_KERNEL_TOL:g}) ok")
         return float(err.max())
 
     def laplacian_bell(n, block, seed):
@@ -3250,6 +3291,19 @@ def main() -> int:
     union_err = max(union_err, check_union(bell.blocks, bell.cols, f_deploy,
                                            filt.gram_coeffs[None], lmax,
                                            f"deploy gram eta=1 M={2 * ORDER}"))
+    # The adjoint kernel at the lasso's (eta, N, F), a ragged last pass at
+    # B = 8 and 16, and one squeezed column.
+    a_deploy = rand(filt.eta, n_pad, DEPLOY_F)
+    adjoint_err = check_adjoint(bell.blocks, bell.cols, a_deploy, filt.coeffs, lmax,
+                                f"deploy eta={filt.eta} M={ORDER} F={DEPLOY_F}")
+    a_ragged = a_deploy[:, :, :100].contiguous()
+    adjoint_err = max(adjoint_err, check_adjoint(bell.blocks, bell.cols, a_ragged, filt.coeffs,
+                                                 lmax, "deploy B=8 F=100 f_tile=32", f_tile=32))
+    adjoint_err = max(adjoint_err, check_adjoint(bell16.blocks, bell16.cols, a_ragged, filt.coeffs,
+                                                 lmax, "deploy B=16 F=100"))
+    adjoint_err = max(adjoint_err, check_adjoint(bell.blocks, bell.cols,
+                                                 a_deploy[:, :, 0].contiguous(), filt.coeffs,
+                                                 lmax, "deploy F=1 (eta, N)"))
 
     # ---- 4. the main path, counted ------------------------------------------
     cheb_bsr.reset_launch_counts()
@@ -3282,6 +3336,13 @@ def main() -> int:
     main_union, main_step = cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches
     require((u1 - u0, s1 - s0) == (1, 0), f"fused apply launched {(u1 - u0, s1 - s0)}")
     require((u2 - u1, s2 - s1) == (0, ORDER), f"stepwise apply launched {(u2 - u1, s2 - s1)}")
+    a0 = cheb_bsr.launch_counts()
+    back_deploy = filt.adjoint(out_fused, backend="bsr")
+    a1 = cheb_bsr.launch_counts()
+    adjoint_launches = tuple(y - x for x, y in zip(a0, a1))
+    expect_launches("bsr adjoint", adjoint_launches, (0, 0, 1))
+    require(back_deploy.shape == (DEPLOY_N, DEPLOY_F) and bool(torch.isfinite(back_deploy).all()),
+            f"bsr adjoint output {tuple(back_deploy.shape)}")
     require(main_union > 0 and main_step > 0, "a kernel of the path was never launched")
     require(out_fused.shape == (filt.eta, DEPLOY_N, DEPLOY_F), f"shape {out_fused.shape}")
     require(bool(torch.isfinite(out_fused).all()), "non-finite fused output")
@@ -3294,7 +3355,8 @@ def main() -> int:
     say(f"[deploy] eta={filt.eta} M={ORDER} F={DEPLOY_F} f_tile={tiling.f_tile} passes {passes} "
         f"grid barriers per fused apply {barriers}: "
         f"max|fused-stepwise| {d_fs:.2e} |fused-dense| {d_fd:.2e} |stepwise-dense| {d_sd:.2e} "
-        f"(tol {AGREE_TOL:g}); launches union 1 per fused apply, step {ORDER} per stepwise apply")
+        f"(tol {AGREE_TOL:g}); launches union {u1 - u0} per fused apply, step {s2 - s1} per "
+        f"stepwise apply, adjoint {adjoint_launches[2]} per bsr adjoint")
     say(f"[main path] launches in the counted run: cheb_union {main_union}, "
         f"cheb_step {main_step}")
 
@@ -3304,8 +3366,9 @@ def main() -> int:
     union_err = max(union_err, solved["union_err"])
     step_err = max(step_err, solved["step_err"])
     require(count.union > 0 and count.step > 0, "a kernel of the solver path was never launched")
+    require(count.adjoint > 0, "the adjoint kernel was never launched on the solver path")
     say(f"[solvers] launches in the counted solves: cheb_union {count.union}, "
-        f"cheb_step {count.step}")
+        f"cheb_step {count.step}, cheb_adjoint_union {count.adjoint}")
     main_union += count.union
     main_step += count.step
 
@@ -3359,10 +3422,12 @@ def main() -> int:
             cheb_bsr.cheb_union_cuda(bell.blocks, bell.cols, fp, coeffs=filt.coeffs, lmax=lmax)
             cheb_bsr.cheb_step_cuda(bell.blocks, bell.cols, fp, t2_deploy, alpha=alpha)
             cheb_bsr.cheb_step_cuda(bell.blocks, bell.cols, fp16, t2_16, alpha=alpha)
+            cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a_deploy,
+                                             coeffs=filt.coeffs, lmax=lmax)
         torch.cuda.synchronize()
     device_ms = {}
     for ev in prof.key_averages():
-        for name in ("cheb_union_kernel", "cheb_step_strip_kernel"):
+        for name in ("cheb_union_kernel", "cheb_step_strip_kernel", "cheb_adjoint_union_kernel"):
             if name in ev.key and ev.count:
                 us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
                 label = name + (" bf16" if "bfloat16" in ev.key else "")
@@ -3401,6 +3466,25 @@ def main() -> int:
         f"{sb_by}: {step_bytes / 1e6:.1f} MB, {step_flops / 1e9:.3f} GFLOP; bf16 signal "
         f"{step_bf16_ms:.3f}; library addmm on sparse {lib_format} {step_lib_ms:.3f}, "
         f"max|addmm-plain| {float(lib_err.max()):.3e} (tol {F32_STEP_TOL:g}))")
+    # The adjoint kernel against its plain version and the plain
+    # recurrence on eta-stacked columns (the route it replaced), on the
+    # same (eta, N, F) input; its bound counts its own work: M matvecs on
+    # F columns and the fused contraction.
+    adjoint_ms = median_ms(lambda: cheb_bsr.cheb_adjoint_union_cuda(
+        bell.blocks, bell.cols, a_deploy, coeffs=filt.coeffs, lmax=lmax))
+    adjoint_plain_ms = median_ms(lambda: tref.cheb_adjoint_union_ref(
+        bell.blocks, bell.cols, a_deploy, filt.coeffs, lmax))
+    adjoint_recurrence_ms = median_ms(lambda: tcheb.cheb_adjoint_apply(
+        lambda v: tref.bsr_matvec_ref(bell, v.reshape(n_pad, -1)).reshape(v.shape), a_deploy,
+        filt.coeffs, lmax), reps=5, warmup=1)
+    adjoint_bytes = tile_bytes + (filt.eta + 1) * sig * 4 + filt.eta * (ORDER + 1) * 4
+    adjoint_flops = ORDER * (2 * nnz_l * DEPLOY_F + 5 * sig) + filt.eta * (ORDER + 1) * 2 * sig
+    ab, ab_by = bound(adjoint_bytes, adjoint_flops)
+    say(f"[timing] cheb_adjoint_union kernel {adjoint_ms:.3f} ms (device "
+        f"{device_ms.get('cheb_adjoint_union_kernel', float('nan')):.4f}; plain Clenshaw "
+        f"{adjoint_plain_ms:.3f}, plain recurrence on eta*F columns {adjoint_recurrence_ms:.3f}; "
+        f"bound {ab:.4f} by {ab_by}: {adjoint_bytes / 1e6:.1f} MB, {adjoint_flops / 1e9:.2f} "
+        f"GFLOP)")
     st = solver_timing(solved["deploy_problem"], bell, tiling.f_tile)
     say(f"[timing] cheb_union at the gram's shape (eta=1, M={gram_order}) "
         f"{st['gram_union_kernel']:.3f} ms, bound {gb:.4f} by {gb_by}: "
@@ -3417,10 +3501,9 @@ def main() -> int:
         + " ".join(f"{d:.4f}" for d in st["tol_sync"]) + ")")
 
     # ---- 7. distributed (Algorithm 1 on a stacked 8-rank mesh) ----------------
-    u_before, s_before = cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches
+    before = cheb_bsr.launch_counts()
     distributed_phase(dev, filt, signal, solved["deploy_fista_dense"])
-    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
-            == (u_before, s_before), "the distributed phase launched a bsr kernel")
+    require(cheb_bsr.launch_counts() == before, "the distributed phase launched a bsr kernel")
 
     # ---- 8. multi-shift joint filters, each run counted ------------------------
     ms_count = LaunchCounter(cheb_bsr)
@@ -3429,6 +3512,7 @@ def main() -> int:
     step_err = max(step_err, ms["step_err"])
     require(ms_count.union > 0 and ms_count.step > 0,
             "a kernel of the multi-shift path was never launched")
+    require(ms_count.adjoint == 0, "the multi-shift path launched the adjoint kernel")
     say(f"[multishift] launches in the counted runs: cheb_union {ms_count.union}, "
         f"cheb_step {ms_count.step}")
     main_union += ms_count.union
@@ -3442,7 +3526,7 @@ def main() -> int:
     union_err = max(union_err, sp["union_err"])
     require(st_count.union > 0, "a kernel of the streaming path was never launched")
     say(f"[stream] launches in the counted pushes and solves: cheb_union {st_count.union}, "
-        f"cheb_step {st_count.step}")
+        f"cheb_step {st_count.step}, cheb_adjoint_union {st_count.adjoint}")
     main_union += st_count.union
     main_step += st_count.step
 
@@ -3454,30 +3538,26 @@ def main() -> int:
     require(sv_count.union > 0 and sv_count.step > 0,
             "a kernel of the serving path was never launched")
     say(f"[serve] launches in the counted engine and program runs: cheb_union "
-        f"{sv_count.union}, cheb_step {sv_count.step}")
+        f"{sv_count.union}, cheb_step {sv_count.step}, cheb_adjoint_union {sv_count.adjoint}")
     main_union += sv_count.union
     main_step += sv_count.step
 
     # ---- 11. gossip consensus and the training substrate ------------------------
-    u_before, s_before = cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches
+    before = cheb_bsr.launch_counts()
     gossip_phase(dev)
-    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
-            == (u_before, s_before), "the gossip phase launched a bsr kernel")
+    require(cheb_bsr.launch_counts() == before, "the gossip phase launched a bsr kernel")
 
     # ---- 12. LM serving: Gemma-2 2B at full width, numerics, smoke configs ------
     lm_out = lm_phase(dev)
-    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
-            == (u_before, s_before), "the LM serving phase launched a bsr kernel")
+    require(cheb_bsr.launch_counts() == before, "the LM serving phase launched a bsr kernel")
 
     # ---- 13. training: Gemma-2 2B at full width, numerics, gossip, entry points --
     train_out = train_phase(dev)
-    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
-            == (u_before, s_before), "the training phase launched a bsr kernel")
+    require(cheb_bsr.launch_counts() == before, "the training phase launched a bsr kernel")
 
     # ---- 14. the dry-run tooling, held against phases 12 and 13 ------------------
     analysis_phase(dev, lm_out, train_out)
-    require((cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches)
-            == (u_before, s_before), "the analysis phase launched a bsr kernel")
+    require(cheb_bsr.launch_counts() == before, "the analysis phase launched a bsr kernel")
     say(smi)
 
     kernels = [
@@ -3511,6 +3591,18 @@ def main() -> int:
             "multishift_launches": ms_count.step,
             "multishift_launches_per_apply": ms_orders[1] * (ms_orders[0] + 1),
             "serve_launches": sv_count.step,
+        },
+        {
+            "name": "cheb_adjoint_union", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cheb_bsr.cu",
+            "replaces": None,  # the reference runs the adjoint as the plain recurrence
+            "launches": adjoint_launches[2] + count.adjoint + st_count.adjoint
+                + sv_count.adjoint,
+            "launches_per_adjoint": adjoint_launches[2], "max_abs_err": adjoint_err,
+            "ms": adjoint_ms, "device_ms": device_ms.get("cheb_adjoint_union_kernel"),
+            "plain_ms": adjoint_plain_ms, "plain_recurrence_ms": adjoint_recurrence_ms,
+            "bound_ms": ab, "bound_by": ab_by, "library_ms": None,
+            "stream_launches": st_count.adjoint, "serve_launches": sv_count.adjoint,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

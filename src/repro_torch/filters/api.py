@@ -157,7 +157,7 @@ class CudaGraphProgram:
         nodes a replay launches, to be read with the driver's graph API.
     launches_per_replay : tuple of int
         Kernel launches one replay makes, ordered as
-        ``kernels.cheb_bsr.launch_counts`` (union, step).
+        ``kernels.cheb_bsr.launch_counts`` (union, step, adjoint).
     """
 
     def __init__(self, fn: Callable[[torch.Tensor], Any], device, *, donate: bool = False):

@@ -7,7 +7,9 @@ Mirrors ``repro/filters/backends.py``:
 * ``bsr``        — Block-ELL: the fused union kernel when
                    ``select_tiling`` says it can hold the apply (one
                    launch per apply), the stepwise chain otherwise (M
-                   launches per apply).
+                   launches per apply); the adjoint likewise in one
+                   launch of the fused adjoint kernel, or the plain
+                   recurrence.
 * ``halo``       — vertex partition over a mesh of ranks, per-order
                    boundary (halo) exchange via ``all_to_all`` —
                    Algorithm 1.
@@ -242,7 +244,10 @@ class BsrBackend:
     (host numpy, as the reference) so nonzeros cluster into dense tiles,
     then tiles the permuted Laplacian into Block-ELL on the graph's
     device. ``apply`` runs the fused kernel when ``select_tiling`` says
-    it can hold the apply, else the stepwise chain.
+    it can hold the apply, else the stepwise chain; ``adjoint`` runs the
+    fused adjoint kernel when ``select_tiling(..., adjoint=True)`` says it
+    can (``fuse=`` does not reach it), else the plain Block-ELL
+    recurrence.
 
     Options: ``block_size`` (prepare; default 8), ``fuse`` and ``f_tile``
     overrides, and ``krylov_dtype`` (apply; default float32, or
@@ -255,7 +260,7 @@ class BsrBackend:
     ``prod_{s<R}(M_s + 1)`` of them) through the same fused/stepwise
     dispatch as a single-shift apply. The joint coefficients go to the
     device once per coefficient tensor, and each innermost call gets a
-    device slice. The adjoint stays the plain Block-ELL recurrence.
+    device slice. Its adjoint stays the plain Block-ELL recurrence.
     """
 
     name = "bsr"
@@ -354,8 +359,12 @@ class BsrBackend:
         return mv
 
     def adjoint(self, filt, state, a, **_):
-        # Same recurrence on eta-stacked blocks (Sec. IV-B) with the plain
-        # Block-ELL matvec: the reference has no kernel for the adjoint.
+        # A single-shift adjoint runs the fused adjoint kernel (the
+        # transposed union recurrence, one launch) wherever the adjoint's
+        # select_tiling fuses, whatever the apply's fuse=; otherwise, and
+        # for a joint filter, the same recurrence on eta-stacked blocks
+        # (Sec. IV-B) with the plain Block-ELL matvec, as the reference
+        # runs every adjoint.
         _check_device(a, state.perm.device)
         squeeze = a.ndim == 2  # (eta, N) -> signals are 1-D
         a3 = a[:, :, None] if squeeze else a
@@ -369,9 +378,20 @@ class BsrBackend:
                     filt.shift_lmaxes,
                 )
             else:
-                out = chebyshev.cheb_adjoint_apply(
-                    self._bell_matvec(state.bell, state.n_pad), ap, c, filt.lmax
-                )
+                bell = state.bell
+                with span("bsr.tiling"):
+                    tiling = autotune.select_tiling(
+                        ap.shape[1], ap.shape[2], ap.shape[0], bell.n_block_rows, bell.k_max,
+                        bell.block_size, ap.dtype, sm_count=autotune.device_sm_count(ap.device),
+                        adjoint=True,
+                    )
+                if tiling.fuse:
+                    out = cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, ap, coeffs=c,
+                                                           lmax=filt.lmax, f_tile=tiling.f_tile)
+                else:
+                    out = chebyshev.cheb_adjoint_apply(
+                        self._bell_matvec(bell, state.n_pad), ap, c, filt.lmax
+                    )
         with span("bsr.unpermute"):
             out = out[state.inv]
         return out[:, 0] if squeeze else out

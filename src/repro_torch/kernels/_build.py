@@ -117,5 +117,9 @@ def load_library() -> ctypes.CDLL:
                 _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
             ]
             lib.cheb_union_launch.restype = _I
+            lib.cheb_adjoint_union_launch.argtypes = [
+                _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+            ]
+            lib.cheb_adjoint_union_launch.restype = _I
             _lib = lib
         return _lib

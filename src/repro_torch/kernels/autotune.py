@@ -34,6 +34,11 @@ The decisions:
   128-byte boundary; when not fused, the step kernel's column slab,
   ``min(F, 128)``.
 
+The fused adjoint kernel (``cheb_adjoint_union_cuda``) has the union
+kernel's threads, registers bound and block sizes, so the same rule
+decides it; ``adjoint=True`` adds its own working set, the eta input
+columns it reads at every order, to the L2 budget of a pass.
+
 ``_F_TILE_TABLE`` (measured-good tiles keyed by block size and dtype) is
 empty: it is filled only from H100 measurements.
 """
@@ -116,12 +121,14 @@ def union_pass_bytes(
     block: int,
     *,
     krylov_dtype: torch.dtype = torch.float32,
+    inputs: int = 1,
 ) -> int:
     """Bytes one fused pass touches each order: the tiles and columns,
-    the input columns of the pass, and its two Krylov buffers. The eta
-    accumulators are in registers and are not counted."""
+    the ``inputs`` input columns of each of the pass's signal columns (1
+    for the apply, eta for the adjoint), and its two Krylov buffers. The
+    eta accumulators are in registers and are not counted."""
     tiles = n_rows * k_max * (block * block * 4 + 4)
-    signal = n * f_tile * 4
+    signal = inputs * n * f_tile * 4
     krylov = 2 * n * f_tile * krylov_dtype.itemsize
     return tiles + signal + krylov
 
@@ -137,8 +144,9 @@ def select_tiling(
     *,
     krylov_dtype: torch.dtype = torch.float32,
     sm_count: int = H100_SMS,
+    adjoint: bool = False,
 ) -> Tiling:
-    """Pick ``(f_tile, fuse)`` for a Chebyshev union apply.
+    """Pick ``(f_tile, fuse)`` for a Chebyshev union apply or its adjoint.
 
     Parameters
     ----------
@@ -146,7 +154,8 @@ def select_tiling(
         Padded signal shape (N, F).
     eta : int
         Multipliers in the union (the kernel loops over groups of
-        ``union_eta_group(block)``; it does not change the decision).
+        ``union_eta_group(block)``; it does not change the decision). The
+        adjoint reads eta input columns per signal column at every order.
     n_rows, k_max, block : int
         Block-ELL operand shape.
     dtype : torch.dtype
@@ -155,27 +164,26 @@ def select_tiling(
         Krylov-buffer precision of the fused kernel.
     sm_count : int
         SMs of the card (``multi_processor_count``).
+    adjoint : bool
+        Tile the fused adjoint kernel instead of the union apply.
     """
-    del eta
     capacity = union_resident_threads(sm_count)
     per_column = n // UNION_ROWS  # threads one signal column takes
     fuse = dtype == torch.float32 and block in UNION_BLOCKS and per_column <= capacity
+    inputs = eta if adjoint else 1
+
+    def pass_bytes(width):
+        return union_pass_bytes(n, width, n_rows, k_max, block, krylov_dtype=krylov_dtype,
+                                inputs=inputs)
+
     if not fuse:
-        return Tiling(
-            f_tile=min(f, STEP_F_TILE),
-            fuse=False,
-            pass_bytes=union_pass_bytes(n, 1, n_rows, k_max, block, krylov_dtype=krylov_dtype),
-        )
-    fixed = union_pass_bytes(n, 0, n_rows, k_max, block, krylov_dtype=krylov_dtype)
-    column_bytes = union_pass_bytes(n, 1, n_rows, k_max, block, krylov_dtype=krylov_dtype) - fixed
+        return Tiling(f_tile=min(f, STEP_F_TILE), fuse=False, pass_bytes=pass_bytes(1))
+    fixed = pass_bytes(0)
+    column_bytes = pass_bytes(1) - fixed
     ft = max(1, min(capacity // per_column, (L2_BUDGET_BYTES - fixed) // column_bytes))
     if ft < f and ft >= WARP:
         ft -= ft % WARP
     ft = min(ft, f)
     table = _F_TILE_TABLE.get((block, str(dtype).removeprefix("torch.")), ())
     ft = max((c for c in table if c <= ft), default=ft)
-    return Tiling(
-        f_tile=ft,
-        fuse=True,
-        pass_bytes=union_pass_bytes(n, ft, n_rows, k_max, block, krylov_dtype=krylov_dtype),
-    )
+    return Tiling(f_tile=ft, fuse=True, pass_bytes=pass_bytes(ft))

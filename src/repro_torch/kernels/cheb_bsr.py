@@ -2,7 +2,9 @@
 
 Mirrors ``repro/kernels/cheb_bsr.py``: ``cheb_step_cuda`` is the
 counterpart of ``cheb_step_pallas`` and ``cheb_union_cuda`` of
-``cheb_union_pallas``; the kernels themselves are in
+``cheb_union_pallas``. ``cheb_adjoint_union_cuda``, the union apply's
+adjoint in one launch, has no counterpart there (the reference runs the
+adjoint as the plain recurrence). The kernels themselves are in
 ``csrc/cheb_bsr.cu``.
 
 Each wrapper takes its path from the device of the tensors it is given:
@@ -31,6 +33,7 @@ from repro_torch.kernels.autotune import UNION_BLOCKS, device_sm_count, select_t
 
 __all__ = [
     "add_launches",
+    "cheb_adjoint_union_cuda",
     "cheb_step_cuda",
     "cheb_union_cuda",
     "device_coeffs",
@@ -153,6 +156,30 @@ def device_coeffs(coeffs, device: torch.device) -> torch.Tensor:
     return cached_upload(np.asarray(coeffs, dtype=np.float64), device, torch.float32)
 
 
+def _series(coeffs, device: torch.device):
+    """(eta, M+1) coefficients, M >= 1: a float64 host array, or a tensor
+    that must be on ``device``."""
+    if isinstance(coeffs, torch.Tensor):
+        c = torch.atleast_2d(coeffs)
+        if c.device != device:
+            raise ValueError(f"coeffs are on {c.device}, the signal on {device}")
+    else:
+        c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
+    if c.ndim != 2:
+        raise ValueError(f"coeffs must be (eta, M+1), got shape {tuple(c.shape)}")
+    if c.shape[1] < 2:
+        raise ValueError("need at least order 1 (two coefficients)")
+    return c
+
+
+def _coeffs_on_device(c, device: torch.device) -> torch.Tensor:
+    """``_series``'s coefficients as the kernels read them: contiguous
+    float32 on ``device``, uploaded once per distinct host array."""
+    if isinstance(c, torch.Tensor):
+        return c.to(torch.float32).contiguous()
+    return device_coeffs(c, device)
+
+
 def cheb_union_cuda(
     blocks: torch.Tensor,
     cols: torch.Tensor,
@@ -185,17 +212,8 @@ def cheb_union_cuda(
     (``autotune.UNION_BLOCKS``), else ``ValueError``.
     """
     n_rows, k_max, b, fdim = _check_operands(blocks, cols, {"f": f})
-    if isinstance(coeffs, torch.Tensor):
-        c = torch.atleast_2d(coeffs)
-        if c.device != f.device:
-            raise ValueError(f"coeffs are on {c.device}, f on {f.device}")
-    else:
-        c = np.atleast_2d(np.asarray(coeffs, dtype=np.float64))
-    if c.ndim != 2:
-        raise ValueError(f"coeffs must be (eta, M+1), got shape {tuple(c.shape)}")
+    c = _series(coeffs, f.device)
     eta, order = c.shape[0], c.shape[1] - 1
-    if order < 1:
-        raise ValueError("need at least order 1 (two coefficients)")
     if krylov_dtype not in _DTYPE_CODE:
         raise TypeError(f"krylov_dtype must be float32 or bfloat16, got {krylov_dtype}")
     if f.device.type == "cpu":
@@ -223,10 +241,7 @@ def cheb_union_cuda(
         f_tile = tiling.f_tile
     if f_tile < 1:
         raise ValueError(f"f_tile must be >= 1, got {f_tile}")
-    if isinstance(c, torch.Tensor):
-        coeffs_dev = c.to(torch.float32).contiguous()
-    else:
-        coeffs_dev = device_coeffs(c, f.device)
+    coeffs_dev = _coeffs_on_device(c, f.device)
     ta = torch.empty((n, fdim), dtype=krylov_dtype, device=f.device)
     tb = torch.empty_like(ta)
     out = torch.empty((eta, n, fdim), dtype=f.dtype, device=f.device)
@@ -246,11 +261,97 @@ def cheb_union_cuda(
 cheb_union_cuda.launches = 0
 
 
-_COUNTED = (cheb_union_cuda, cheb_step_cuda)
+def cheb_adjoint_union_cuda(
+    blocks: torch.Tensor,
+    cols: torch.Tensor,
+    a: torch.Tensor,
+    *,
+    coeffs,
+    lmax: float,
+    f_tile: int | None = None,
+) -> torch.Tensor:
+    """The union apply's adjoint ``Phi~* a`` (eq. 13) in one launch.
+
+    The transposed union recurrence: with ``L`` symmetric it is the
+    Chebyshev series ``sum_k Tbar_k(L) z_k``, ``z_k = sum_j c_{j,k} a_j``
+    (``c_{j,0}`` halved), summed by Clenshaw's recurrence; M matvecs on F
+    columns, the contraction with the coefficients fused into them.
+
+    Args:
+      blocks: (n_rows, k_max, B, B) float32 tiles.
+      cols: (n_rows, k_max) int32 block columns.
+      a: (eta, N, F) float32 stacked coefficient signals, or (eta, N).
+      coeffs: (eta, M+1) Chebyshev coefficients, M >= 1: a host array
+        (uploaded once per distinct array, see ``device_coeffs``) or a
+        tensor on ``a``'s device (used as it is, cast to float32).
+      lmax: spectrum bound.
+      f_tile: signal columns per resident pass (default from
+        ``autotune.select_tiling(..., adjoint=True)``).
+
+    Returns: (N, F), or (N,) for an (eta, N) input, in ``a.dtype``.
+
+    On CUDA tensors ``B`` must be one the kernel is built for
+    (``autotune.UNION_BLOCKS``), else ``ValueError``.
+    """
+    if a.dim() not in (2, 3):
+        raise ValueError(f"a must be (eta, N, F) or (eta, N), got {tuple(a.shape)}")
+    squeeze = a.dim() == 2
+    a3 = a[:, :, None] if squeeze else a
+    n_rows, k_max, b, fdim = _check_operands(blocks, cols, {"a[0]": a3[0]})
+    c = _series(coeffs, a.device)
+    eta, order = c.shape[0], c.shape[1] - 1
+    if a.shape[0] != eta:
+        raise ValueError(f"adjoint input has {a.shape[0]} blocks, coeffs {eta}")
+    if a.device.type == "cpu":
+        return ref.cheb_adjoint_union_ref(blocks, cols, a, c, lmax)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if blocks.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"blocks and a must be float32, got {blocks.dtype} and {a.dtype}")
+    if b not in UNION_BLOCKS:
+        raise ValueError(
+            f"the fused adjoint kernel is built for B in {UNION_BLOCKS}, got B = {b}; "
+            "use the plain recurrence (chebyshev.cheb_adjoint_apply)"
+        )
+    n = n_rows * b
+    _check_index_range(n, fdim)
+    _cuda_ready((blocks, cols, a3))
+    if f_tile is None:
+        tiling = select_tiling(n, fdim, eta, n_rows, k_max, b, a.dtype,
+                               sm_count=device_sm_count(a.device), adjoint=True)
+        if not tiling.fuse:
+            raise ValueError(
+                f"N = {n} exceeds what one resident pass of the fused kernel holds; "
+                "use the plain recurrence (chebyshev.cheb_adjoint_apply)"
+            )
+        f_tile = tiling.f_tile
+    if f_tile < 1:
+        raise ValueError(f"f_tile must be >= 1, got {f_tile}")
+    coeffs_dev = _coeffs_on_device(c, a.device)
+    ba = torch.empty((n, fdim), dtype=torch.float32, device=a.device)
+    bb = torch.empty_like(ba)
+    out = torch.empty((n, fdim), dtype=a.dtype, device=a.device)
+    alpha = lmax / 2.0
+    lib = load_library()
+    err = lib.cheb_adjoint_union_launch(
+        blocks.data_ptr(), cols.data_ptr(), a3.data_ptr(), coeffs_dev.data_ptr(),
+        ba.data_ptr(), bb.data_ptr(), out.data_ptr(),
+        n_rows, k_max, b, fdim, eta, order, f_tile, 1.0 / alpha, 2.0 / alpha,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _raise_on(err, "cheb_adjoint_union_cuda launch")
+    cheb_adjoint_union_cuda.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+cheb_adjoint_union_cuda.launches = 0
+
+
+_COUNTED = (cheb_union_cuda, cheb_step_cuda, cheb_adjoint_union_cuda)
 
 
 def launch_counts() -> tuple[int, ...]:
-    """Every wrapper's launch count, union kernel first, then step."""
+    """Every wrapper's launch count: union kernel, step, adjoint."""
     return tuple(w.launches for w in _COUNTED)
 
 

@@ -1,7 +1,7 @@
 // Block-ELL Chebyshev kernels for Hopper (sm_90a), CUDA C++.
 //
-// Two kernels, each the counterpart of a Pallas TPU kernel in
-// src/repro/kernels/cheb_bsr.py:
+// Three kernels. The first two are each the counterpart of a Pallas TPU
+// kernel in src/repro/kernels/cheb_bsr.py:
 //
 // * cheb_step_strip_kernel (B = 8, 16) and cheb_step_kernel (any other B)
 //   replace cheb_step_pallas (_cheb_step_kernel, :40; pallas_call :128).
@@ -11,6 +11,19 @@
 //   :159; pallas_call :331). The whole union apply, eq. 9 + eq. 11, in one
 //   launch: T_0 = f, T_1 = L f / a - f, T_k = (2/a) L T_{k-1} - 2 T_{k-1}
 //   - T_{k-2}, and the eta accumulators c_{j,0}/2 T_0 + sum_k c_{j,k} T_k.
+//
+// The third has no TPU counterpart (the reference runs the adjoint as the
+// plain recurrence on eta-stacked columns):
+//
+// * cheb_adjoint_union_kernel is the union apply's adjoint, eq. 13,
+//   Phi~* a = sum_j sum_k c_{j,k} T_k a_j (c_{j,0} halved), in one launch.
+//   L is symmetric, so each T_k = Tbar_k(L) is too, and the sum is
+//   sum_k T_k z_k with z_k = sum_j c_{j,k} a_j: a Chebyshev series with
+//   vector coefficients, summed by Clenshaw's recurrence. With
+//   Lt = L / a - I, b_{M+1} = b_{M+2} = 0 and
+//   b_k = z_k + 2 Lt b_{k+1} - b_{k+2} (k = M .. 1), the result is
+//   z_0 + Lt b_1 - b_2. That is M matvecs on F columns, the forward
+//   apply's work, where the plain recurrence runs M on eta * F.
 //
 // What bounds them on this card. Both are gather-driven sparse products
 // with about 2*B FLOPs per gathered value: far below the ~20 FLOP/byte at
@@ -88,6 +101,22 @@
 //   disjoint columns of the full (N, F) buffers and need none.
 // * Coefficients and lmax are runtime arguments (a device array and
 //   floats), so a new filter needs no rebuild.
+//
+// The adjoint kernel keeps the union kernel's skeleton: the same strip
+// per thread, the same passes, strip_lx for the matvec, ping/pong scratch
+// read with __ldcg and one grid barrier per order. What differs:
+//
+// * The sweep runs from k = M down to 0. z_k is formed in registers at
+//   each order from the thread's rows of the eta inputs (eta reads a row,
+//   against the B tile columns' gathers of the matvec), so the eq. 13
+//   contraction is fused and nothing of size (M+1, N, F) is written.
+// * b_{k+1} and b_{k+2} of the thread's own rows stay in registers; only
+//   b_k goes to the scratch, for the neighbouring strips' matvecs. So an
+//   order reads only b_{k+1} from one buffer and writes b_k into the
+//   other, which held b_{k+2} that no thread reads any more: one barrier
+//   per order keeps every gather of b_{k+1} ahead of the next write.
+// * One output and no accumulator groups: any eta runs in one sweep.
+//   The output is written once, at k = 0.
 //
 // Plain C interface, loaded with ctypes: every pointer and the stream are
 // void*, every launcher returns the cudaError_t of its launch.
@@ -373,6 +402,85 @@ cheb_union_kernel(const float* __restrict__ blocks, const int* __restrict__ cols
   }
 }
 
+// z_k over the thread's UNION_ROWS rows: sum_j c_{j,k} a_j, c_{j,0} halved.
+__device__ __forceinline__ void adjoint_z(const float* __restrict__ a,
+                                          const float* __restrict__ coeffs, int eta, int ncoef,
+                                          int k, size_t nf, int row0, int F,
+                                          float (&z)[UNION_ROWS]) {
+#pragma unroll
+  for (int r = 0; r < UNION_ROWS; ++r) z[r] = 0.f;
+  for (int j = 0; j < eta; ++j) {
+    const float c = (k == 0 ? 0.5f : 1.f) * __ldg(coeffs + j * ncoef + k);
+    const float* aj = a + j * nf + row0;
+#pragma unroll
+    for (int r = 0; r < UNION_ROWS; ++r) z[r] = fmaf(c, __ldg(aj + r * F), z[r]);
+  }
+}
+
+template <int B>
+__global__ void __launch_bounds__(UNION_THREADS, UNION_MIN_BLOCKS)
+cheb_adjoint_union_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+                          const float* __restrict__ a, const float* __restrict__ coeffs,
+                          float* ba, float* bb, float* __restrict__ out, int n_rows, int k_max,
+                          int F, int eta, int order, int f_tile, float inv_alpha,
+                          float two_inv_alpha) {
+  constexpr int H = B / UNION_ROWS;  // threads per strip
+  cg::grid_group grid = cg::this_grid();
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ncoef = order + 1;
+  const size_t nf = static_cast<size_t>(n_rows) * B * F;
+
+  for (int f0 = 0; f0 < F; f0 += f_tile) {
+    // Lanes take neighbour columns of one (block row, row half).
+    const int fc = min(f_tile, F - f0);
+    const bool active = tid < n_rows * H * fc;
+    const int rest = active ? tid / fc : 0;
+    const int col = f0 + (active ? tid - rest * fc : 0);
+    const int br = rest / H;
+    const int r0 = (rest - br * H) * UNION_ROWS;
+    const int row0 = (br * B + r0) * F + col;  // element (br*B + r0, col)
+    float b1[UNION_ROWS], b2[UNION_ROWS];      // b_{k+1}, b_{k+2} of this thread's rows
+    float z[UNION_ROWS], s[UNION_ROWS];
+
+    // k = M: b_M = z_M, into the buffer of M's parity (even: ba).
+    if (active) {
+      adjoint_z(a, coeffs, eta, ncoef, order, nf, row0, F, z);
+      float* dst = (order % 2 == 0) ? ba : bb;
+#pragma unroll
+      for (int r = 0; r < UNION_ROWS; ++r) {
+        b1[r] = z[r];
+        b2[r] = 0.f;
+        dst[row0 + r * F] = z[r];
+      }
+    }
+
+    // k = M-1 .. 1: b_k = z_k + (2/a) L b_{k+1} - 2 b_{k+1} - b_{k+2} over
+    // the buffer that held b_{k+2}; k = 0: the output.
+    for (int k = order - 1; k >= 0; --k) {
+      grid.sync();
+      if (!active) continue;
+      const float* src = (k % 2 == 0) ? bb : ba;  // b_{k+1}
+      strip_lx<B, true>(blocks, cols, src, br, r0, col, n_rows, k_max, F, s);
+      adjoint_z(a, coeffs, eta, ncoef, k, nf, row0, F, z);
+      if (k > 0) {
+        float* dst = (k % 2 == 0) ? ba : bb;
+#pragma unroll
+        for (int r = 0; r < UNION_ROWS; ++r) {
+          const float bk = z[r] + two_inv_alpha * s[r] - 2.f * b1[r] - b2[r];
+          dst[row0 + r * F] = bk;
+          b2[r] = b1[r];
+          b1[r] = bk;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < UNION_ROWS; ++r)
+          out[row0 + r * F] = z[r] + inv_alpha * s[r] - b1[r] - b2[r];
+      }
+    }
+    // No barrier: the next pass writes other columns of ba/bb and out.
+  }
+}
+
 template <int B, typename TB, typename TT>
 cudaError_t launch_step_strip(const void* blocks, const void* cols, const void* t1,
                               const void* t2, void* out, int n_rows, int k_max, int F,
@@ -464,6 +572,43 @@ cudaError_t launch_union_b(const void* blocks, const void* cols, const void* f,
   return cudaErrorInvalidValue;
 }
 
+template <int B>
+cudaError_t launch_adjoint_union(const void* blocks, const void* cols, const void* a,
+                                 const void* coeffs, void* ba, void* bb, void* out, int n_rows,
+                                 int k_max, int F, int eta, int order, int f_tile,
+                                 float inv_alpha, float two_inv_alpha, cudaStream_t stream) {
+  static int per_sm = 0;  // resident blocks per SM: a property of the build
+  int device = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cheb_adjoint_union_kernel<B>,
+                                                        UNION_THREADS, 0);
+    if (err != cudaSuccess) return err;
+  }
+  if (f_tile > F) f_tile = F;
+  const long threads = static_cast<long>(n_rows) * (B / UNION_ROWS) * f_tile;
+  const long want = (threads + UNION_THREADS - 1) / UNION_THREADS;
+  // Every block must be resident at once for grid.sync().
+  if (want > static_cast<long>(per_sm) * n_sm) return cudaErrorCooperativeLaunchTooLarge;
+  const float* blocks_p = static_cast<const float*>(blocks);
+  const int* cols_p = static_cast<const int*>(cols);
+  const float* a_p = static_cast<const float*>(a);
+  const float* coeffs_p = static_cast<const float*>(coeffs);
+  float* ba_p = static_cast<float*>(ba);
+  float* bb_p = static_cast<float*>(bb);
+  float* out_p = static_cast<float*>(out);
+  void* args[] = {&blocks_p, &cols_p, &a_p, &coeffs_p, &ba_p, &bb_p, &out_p,
+                  &n_rows, &k_max, &F, &eta, &order, &f_tile, &inv_alpha, &two_inv_alpha};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cheb_adjoint_union_kernel<B>),
+                                    dim3(static_cast<unsigned>(want)), dim3(UNION_THREADS),
+                                    args, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -502,6 +647,21 @@ int cheb_union_launch(const void* blocks, const void* cols, const void* f, const
   if (B == 16)
     return launch_union_b<16>(blocks, cols, f, coeffs, ta, tb, krylov_dtype, out, n_rows,
                               k_max, F, eta, order, f_tile, inv_alpha, two_inv_alpha, s);
+  return cudaErrorInvalidValue;
+}
+
+// The adjoint kernel, float32 throughout; B = 8 and 16 are built.
+int cheb_adjoint_union_launch(const void* blocks, const void* cols, const void* a,
+                              const void* coeffs, void* ba, void* bb, void* out, int n_rows,
+                              int k_max, int B, int F, int eta, int order, int f_tile,
+                              float inv_alpha, float two_inv_alpha, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 8)
+    return launch_adjoint_union<8>(blocks, cols, a, coeffs, ba, bb, out, n_rows, k_max, F, eta,
+                                   order, f_tile, inv_alpha, two_inv_alpha, s);
+  if (B == 16)
+    return launch_adjoint_union<16>(blocks, cols, a, coeffs, ba, bb, out, n_rows, k_max, F, eta,
+                                    order, f_tile, inv_alpha, two_inv_alpha, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the Block-ELL Chebyshev kernels.
 
-Mirrors ``repro/kernels/ref.py`` and adds ``cheb_union_ref``, the plain
-version of the fused union kernel. These functions are the kernels'
-oracles: the CPU tests run them, the kernel wrappers use them for CPU
-tensors, and ``chip_smoke.py`` holds each CUDA kernel against them on the
-card. They operate on the same Block-ELL operands as the kernels,
-padding slots included.
+Mirrors ``repro/kernels/ref.py`` and adds ``cheb_union_ref`` and
+``cheb_adjoint_union_ref``, the plain versions of the fused union kernel
+and of its adjoint. These functions are the kernels' oracles: the CPU
+tests run them, the kernel wrappers use them for CPU tensors, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card. They
+operate on the same Block-ELL operands as the kernels, padding slots
+included.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ __all__ = [
     "cheb_step_ref",
     "cheb_apply_bsr_ref",
     "cheb_union_ref",
+    "cheb_adjoint_union_ref",
     "step_constants",
 ]
 
@@ -126,12 +128,15 @@ def bsr_to_dense(bell: BlockEll) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(nb * b, nb * b)
 
 
-def _lx_f32(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``L @ x`` from Block-ELL operands, products and sums in float32."""
+def _lx_f32(
+    blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """``L @ x`` from Block-ELL operands, products and sums in float32
+    (or ``dtype``)."""
     nb, _, b, _ = blocks.shape
-    xb = x.reshape(nb, b, -1).to(torch.float32)
+    xb = x.reshape(nb, b, -1).to(dtype)
     gathered = xb[cols.long()]  # (nb, k_max, b, F)
-    out = torch.einsum("rkij,rkjf->rif", blocks.to(torch.float32), gathered)
+    out = torch.einsum("rkij,rkjf->rif", blocks.to(dtype), gathered)
     return out.reshape(x.shape[0], -1)
 
 
@@ -218,3 +223,51 @@ def cheb_union_ref(
         for j in range(eta):
             acc[j] += c[j][k] * t_new
     return acc.to(f.dtype)
+
+
+def cheb_adjoint_union_ref(
+    blocks: torch.Tensor,
+    cols: torch.Tensor,
+    a: torch.Tensor,
+    coeffs,
+    lmax: float,
+) -> torch.Tensor:
+    """Plain version of the fused adjoint kernel: eq. 13 by Clenshaw's
+    recurrence.
+
+    ``L`` is symmetric, so ``Phi~* a = sum_k Tbar_k(L) z_k`` with
+    ``z_k = sum_j c_{j,k} a_j`` (``c_{j,0}`` halved). With ``Lt = L / a -
+    I``: ``b_{M+1} = b_{M+2} = 0``, ``b_k = z_k + 2 Lt b_{k+1} - b_{k+2}``
+    for k = M .. 1, and the result ``z_0 + Lt b_1 - b_2``. Every step
+    computes in f32, with the coefficients rounded to f32 as the kernel
+    reads them; a float64 ``a`` computes in float64 throughout.
+
+    Args:
+      a: (eta, N) or (eta, N, F) stacked coefficient signals.
+      coeffs: (eta, M+1), M >= 1: a host array or a tensor.
+
+    Returns: (N,) or (N, F) in ``a.dtype``.
+    """
+    wd = torch.float64 if a.dtype == torch.float64 else torch.float32
+    if isinstance(coeffs, torch.Tensor):
+        c = torch.atleast_2d(coeffs).to(device=a.device, dtype=wd)
+    else:
+        c = torch.as_tensor(np.atleast_2d(np.asarray(coeffs, dtype=np.float64)), dtype=wd,
+                            device=a.device)
+    eta, order = c.shape[0], c.shape[1] - 1
+    if order < 1:
+        raise ValueError("need at least order 1 (two coefficients)")
+    if a.shape[0] != eta:
+        raise ValueError(f"adjoint input has {a.shape[0]} blocks, coeffs {eta}")
+    c = torch.cat([0.5 * c[:, :1], c[:, 1:]], dim=1)
+    a3 = (a[:, :, None] if a.dim() == 2 else a).to(wd)
+    alpha = lmax / 2.0
+
+    def z(k):
+        return torch.tensordot(c[:, k], a3, dims=1)
+
+    b1, b2 = z(order), torch.zeros_like(a3[0])
+    for k in range(order - 1, 0, -1):
+        b1, b2 = z(k) + (2.0 / alpha) * _lx_f32(blocks, cols, b1, wd) - 2.0 * b1 - b2, b1
+    out = z(0) + _lx_f32(blocks, cols, b1, wd) / alpha - b1 - b2
+    return (out[:, 0] if a.dim() == 2 else out).to(a.dtype)

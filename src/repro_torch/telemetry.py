@@ -61,7 +61,7 @@ SPAN_NAMES = {
     "bsr.permute": "BsrBackend: the signal gathered into the RCB order and padded",
     "bsr.tiling": "BsrBackend: select_tiling's choice of fused kernel and f_tile",
     "bsr.union": "BsrBackend: the union apply's launch (fused kernel or stepwise chain)",
-    "bsr.recurrence": "BsrBackend: the adjoint's Block-ELL recurrence",
+    "bsr.recurrence": "BsrBackend: the adjoint (fused kernel or plain Block-ELL recurrence)",
     "bsr.unpermute": "BsrBackend: the output gathered back to the vertex order",
     "solver.iteration": "one step of a solver loop (method, index; device events)",
 }

@@ -113,6 +113,113 @@ def test_union_kernel_refuses_an_unbuilt_block_size(cuda_device):
     assert cheb_bsr.cheb_union_cuda.launches == before
 
 
+def _adjoint_operands(device, block, f, eta, order, squeeze=False):
+    """A 256-node sensor-graph Laplacian tiled at ``block``, an (eta, N, F)
+    input (or (eta, N) when ``squeeze``) and random coefficients."""
+    g = tgraph.random_sensor_graph(torch.Generator().manual_seed(order), 256, 0.1, 0.11,
+                                   device=device)
+    bell = tref.bsr_from_dense(g.laplacian(), block)
+    shape = (eta, 256) if squeeze else (eta, 256, f)
+    a = torch.randn(*shape, generator=torch.Generator().manual_seed(eta)).to(device)
+    coeffs = np.random.RandomState(order).randn(eta, order + 1) / (1 + np.arange(order + 1))
+    return bell, a, coeffs, float(g.lmax_bound())
+
+
+@pytest.mark.parametrize(
+    "block,f,eta,order,f_tile,squeeze",
+    [(8, 40, 5, 20, None, False), (16, 40, 5, 20, None, False), (8, 100, 5, 20, 32, False),
+     (16, 100, 3, 12, 32, False), (8, 40, 10, 20, None, False), (16, 40, 10, 20, None, False),
+     (8, 1, 5, 20, None, True), (16, 1, 5, 20, None, True), (8, 40, 2, 1, None, False)],
+    ids=["b8", "b16", "ragged", "b16-ragged", "eta10", "b16-eta10", "f1", "b16-f1", "order1"],
+)
+def test_adjoint_kernel_matches_plain(cuda_device, block, f, eta, order, f_tile, squeeze):
+    # f_tile=32 at F = 100 is three full passes and a ragged one of 4
+    # columns; an (eta, N) input is one column and comes back (N,).
+    bell, a, coeffs, lmax = _adjoint_operands(cuda_device, block, f, eta, order, squeeze)
+    before = cheb_bsr.launch_counts()
+    got = cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a, coeffs=coeffs, lmax=lmax,
+                                           f_tile=f_tile)
+    torch.cuda.synchronize()
+    assert cheb_bsr.launch_counts() == (before[0], before[1], before[2] + 1)
+    want = tref.cheb_adjoint_union_ref(bell.blocks, bell.cols, a, coeffs, lmax)
+    assert got.shape == want.shape == ((256,) if squeeze else (256, f))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_adjoint_kernel_gives_nan_rows_for_an_out_of_range_column(cuda_device):
+    bell, a, coeffs, lmax = _adjoint_operands(cuda_device, 8, 4, 2, 6)
+    cols = bell.cols.clone()
+    cols[5, 0] = bell.n_block_rows  # one past the last block row
+    got = cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, cols, a, coeffs=coeffs, lmax=lmax)
+    assert bool(torch.isnan(got[5 * 8:6 * 8]).all())
+
+
+def test_adjoint_kernel_refuses_an_unbuilt_block_size(cuda_device):
+    bell, a, coeffs, lmax = _adjoint_operands(cuda_device, 32, 4, 2, 6)
+    before = cheb_bsr.launch_counts()
+    with pytest.raises(ValueError, match="built for B"):
+        cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a, coeffs=coeffs, lmax=lmax)
+    assert cheb_bsr.launch_counts() == before
+
+
+def test_bsr_adjoint_launches_one_adjoint_kernel(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    g = tgraph.connected_sensor_graph(gen, n=500, device=cuda_device)
+    filt = GraphFilter.from_multipliers(tmult.sgwt_filter_bank(float(g.lmax_bound()), 4), 20,
+                                        graph=g)
+    a = filt.apply(torch.randn(500, 3, generator=gen).to(cuda_device), backend="dense")
+    dense = filt.adjoint(a, backend="dense")
+    cheb_bsr.reset_launch_counts()
+    fused = filt.adjoint(a, backend="bsr")
+    torch.cuda.synchronize()
+    assert cheb_bsr.launch_counts() == (0, 0, 1)
+    plain = filt.adjoint(a.double(), backend="bsr")  # float64: the plain recurrence
+    assert cheb_bsr.launch_counts() == (0, 0, 1) and plain.dtype == torch.float64
+    torch.testing.assert_close(fused, dense, rtol=0, atol=1e-4)
+    torch.testing.assert_close(plain.float(), dense, rtol=0, atol=1e-4)
+    one = filt.adjoint(a[:, :, 0], backend="bsr")
+    assert one.shape == (500,) and cheb_bsr.launch_counts() == (0, 0, 2)
+    torch.testing.assert_close(one, dense[:, 0], rtol=0, atol=1e-4)
+
+
+def test_fista_panel_program_records_the_adjoint_kernel(cuda_device):
+    from repro_torch.filters import CudaGraphProgram
+    from repro_torch.solvers import LassoProblem, fista, lasso_panel_program
+
+    filt, panels = _serve_setting(cuda_device)
+    run = lasso_panel_program(filt, method="fista", mu=1.0, n_iters=8, backend="bsr")
+    prog = CudaGraphProgram(run, cuda_device)
+    cheb_bsr.reset_launch_counts()
+    x, a, _ = (t.clone() for t in prog(panels[0]))
+    # per replay: the initial forward apply, then one apply and one adjoint
+    # per iteration, and the final adjoint
+    assert prog.launches_per_replay == (9, 0, 9)
+    assert cheb_bsr.launch_counts() == (18, 0, 18)  # the eager warm-up and one replay
+    want = fista(LassoProblem(filt=filt, y=panels[0], mu=1.0), n_iters=8, backend="bsr")
+    torch.testing.assert_close(x, want.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(a, want.aux, rtol=1e-4, atol=1e-4)
+
+
+def test_fista_on_bsr_matches_dense_at_the_deployment_shape(cuda_device):
+    from repro_torch.solvers import LassoProblem, fista
+
+    n = 8192
+    scale = (500 / n) ** 0.5
+    gen = torch.Generator().manual_seed(7)
+    g = tgraph.random_sensor_graph(gen, n, 0.074 * scale, 0.075 * scale, device=cuda_device)
+    lmax = float(g.lmax_bound())
+    filt = GraphFilter.from_multipliers(tmult.sgwt_filter_bank(lmax, 4), 20, graph=g, lmax=lmax)
+    y = torch.randn(n, 256, generator=gen).to(cuda_device)
+    problem = LassoProblem(filt=filt, y=y, mu=2.0)
+    cheb_bsr.reset_launch_counts()
+    got = fista(problem, n_iters=10, backend="bsr")
+    assert cheb_bsr.launch_counts() == (11, 0, 11)
+    want = fista(problem, n_iters=10, backend="dense")
+    assert bool(torch.isfinite(got.x).all())
+    torch.testing.assert_close(got.x, want.x, rtol=0, atol=2e-4)
+    torch.testing.assert_close(got.aux, want.aux, rtol=0, atol=2e-4)
+
+
 def test_bsr_backend_on_cuda_reaches_only_the_kernels(cuda_device):
     gen = torch.Generator().manual_seed(0)
     g = tgraph.connected_sensor_graph(gen, n=500, device=cuda_device)
@@ -147,9 +254,10 @@ def test_ista_on_the_kernels_matches_dense(cuda_device):
     dense = solvers.ista(problem, n_iters=10, backend="dense")
     cheb_bsr.reset_launch_counts()
     fused = solvers.ista(problem, n_iters=10, backend="bsr")
-    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == (11, 0)
+    assert cheb_bsr.launch_counts() == (11, 0, 11)
     stepwise = solvers.ista(problem, n_iters=10, backend="bsr", fuse=False)
-    assert cheb_bsr.cheb_step_cuda.launches == 11 * 16
+    # fuse= picks the apply's route; the adjoint's follows select_tiling
+    assert cheb_bsr.launch_counts() == (11, 11 * 16, 22)
     for res in (fused, stepwise):
         torch.testing.assert_close(res.x, dense.x, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(res.aux, dense.aux, rtol=1e-5, atol=1e-5)
@@ -307,9 +415,9 @@ def _serve_setting(device, order=20):
     return filt, panels
 
 
-@pytest.mark.parametrize("backend,opts,want", [("bsr", {}, (1, 0)),
-                                               ("bsr", {"fuse": False}, (0, 20)),
-                                               ("dense", {}, (0, 0))],
+@pytest.mark.parametrize("backend,opts,want", [("bsr", {}, (1, 0, 0)),
+                                               ("bsr", {"fuse": False}, (0, 20, 0)),
+                                               ("dense", {}, (0, 0, 0))],
                          ids=["bsr-fused", "bsr-stepwise", "dense"])
 def test_panel_program_replays_match_eager_and_count_launches(cuda_device, backend, opts, want):
     from repro_torch.filters import CudaGraphProgram
@@ -321,13 +429,12 @@ def test_panel_program_replays_match_eager_and_count_launches(cuda_device, backe
     first = prog(panels[0]).clone()
     # the first call: one eager warm-up, then the capture (which launches
     # nothing) and one replay
-    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == tuple(
-        2 * w for w in want)
+    assert cheb_bsr.launch_counts() == tuple(2 * w for w in want)
     assert prog.launches_per_replay == want
     for p in panels[1:]:
         cheb_bsr.reset_launch_counts()
         got = prog(p)
-        assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == want
+        assert cheb_bsr.launch_counts() == want
         torch.testing.assert_close(got, filt.apply(p, backend=backend, **opts), rtol=0, atol=1e-6)
     torch.testing.assert_close(first, filt.apply(panels[0], backend=backend, **opts),
                                rtol=0, atol=1e-6)

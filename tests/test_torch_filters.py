@@ -72,6 +72,42 @@ def test_apply_adjoint_gram_match_reference(small, backend, opts, squeeze):
            jf.gram(jnp.asarray(x), backend="dense"))
 
 
+@pytest.mark.parametrize("opts,dtype,fused", [({}, np.float32, True),
+                                              ({"fuse": False}, np.float32, True),
+                                              ({"block_size": 16}, np.float32, True),
+                                              ({"block_size": 4}, np.float32, False),
+                                              ({}, np.float64, False)],
+                         ids=["default", "fuse-false", "b16", "b4", "float64"])
+@pytest.mark.parametrize("squeeze", [False, True], ids=["2d", "1d"])
+def test_bsr_adjoint_takes_the_fused_kernel_where_the_tiling_fuses(small, monkeypatch, opts,
+                                                                  dtype, fused, squeeze):
+    """A single-shift bsr adjoint calls the fused adjoint wrapper (its plain
+    version on the CPU) where select_tiling fuses, whatever the apply's
+    ``fuse=`` says, and the plain recurrence otherwise (a block size the
+    kernel is not built for, a float64 signal); both agree with the
+    reference's dense adjoint. The backend hands the wrapper the f_tile
+    of its own tiling decision."""
+    from repro_torch.kernels import cheb_bsr
+
+    _, _, jf, tf, f = small
+    calls = []
+    wrapper = cheb_bsr.cheb_adjoint_union_cuda
+
+    def spy(*args, **kw):
+        calls.append((args[2].shape, kw.get("f_tile")))
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(cheb_bsr, "cheb_adjoint_union_cuda", spy)
+    x = f[:, 0] if squeeze else f
+    a = np.asarray(jf.apply(jnp.asarray(x), backend="dense"))
+    got = tf.adjoint(torch.as_tensor(a.astype(dtype)), backend="bsr", **opts)
+    assert got.shape == x.shape and got.dtype == torch.as_tensor(a.astype(dtype)).dtype
+    _close(got, jf.adjoint(jnp.asarray(a), backend="dense"))
+    n_pad = -(-96 // opts.get("block_size", 8)) * opts.get("block_size", 8)
+    f_cols = x.shape[1] if x.ndim == 2 else 1
+    assert calls == ([((2, n_pad, f_cols), f_cols)] if fused else [])
+
+
 @pytest.mark.parametrize("fuse", [True, False], ids=["fused", "stepwise"])
 def test_bsr_matches_reference_bsr(small, fuse):
     """Port bsr (plain kernel versions) == reference bsr (Pallas in

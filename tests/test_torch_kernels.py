@@ -1,6 +1,8 @@
 """Port parity for ``repro_torch.kernels``: the plain versions of the two
 Block-ELL kernels against the reference Pallas kernels in interpret mode,
-the ops chains, the wrappers' CPU path and the Hopper tiling decision."""
+the plain version of the fused adjoint against the plain eq. 13
+recurrence, the ops chains, the wrappers' CPU path and the Hopper tiling
+decision."""
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -13,6 +15,8 @@ from repro.core import multipliers as jmult
 from repro.kernels import ref as jref
 from repro.kernels.cheb_bsr import cheb_step_pallas, cheb_union_pallas
 from repro_torch import interop
+from repro_torch.core import chebyshev as tcheb
+from repro_torch.core import graph as tgraph
 from repro_torch.kernels import autotune, cheb_bsr, ops
 from repro_torch.kernels import ref as tref
 
@@ -164,6 +168,76 @@ def test_stepwise_chain_matches_reference(lap_operands, krylov):
     np.testing.assert_allclose(fused.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.fixture(scope="module")
+def port_laplacian():
+    """A 256-node sensor graph's Laplacian and its lambda-max bound."""
+    g = tgraph.random_sensor_graph(torch.Generator().manual_seed(0), 256, 0.1, 0.11, device="cpu")
+    return g.laplacian(), float(g.lmax_bound())
+
+
+@pytest.mark.parametrize("f", [1, 100])
+@pytest.mark.parametrize("order", [1, 2, 20])
+@pytest.mark.parametrize("eta", [1, 5, 10])
+@pytest.mark.parametrize("block", [8, 16])
+def test_cheb_adjoint_union_ref_matches_plain_recurrence(port_laplacian, block, eta, order, f):
+    """Clenshaw's transposed sweep against eq. 13's recurrence on
+    eta-stacked columns over the plain Block-ELL matvec, both in f32."""
+    lap, lmax = port_laplacian
+    bell = tref.bsr_from_dense(lap, block)
+    coeffs = np.random.RandomState(order).randn(eta, order + 1) / (1 + np.arange(order + 1))
+    a = torch.randn(eta, bell.n, f, generator=torch.Generator().manual_seed(eta))
+    got = tref.cheb_adjoint_union_ref(bell.blocks, bell.cols, a, coeffs, lmax)
+    want = tcheb.cheb_adjoint_apply(
+        lambda v: tref.bsr_matvec_ref(bell, v.reshape(bell.n, -1)).reshape(v.shape), a,
+        coeffs, lmax)
+    assert got.shape == (bell.n, f) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # The wrapper on CPU tensors is the plain version, uncounted; an
+    # (eta, N) input gives an (N,) output.
+    before = cheb_bsr.cheb_adjoint_union_cuda.launches
+    wrapped = cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a, coeffs=coeffs, lmax=lmax)
+    assert cheb_bsr.cheb_adjoint_union_cuda.launches == before
+    assert torch.equal(wrapped, got)
+    if f == 1:
+        flat = cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a[:, :, 0],
+                                                coeffs=coeffs, lmax=lmax)
+        assert flat.shape == (bell.n,) and torch.equal(flat, got[:, 0])
+
+
+def test_cheb_adjoint_union_ref_is_the_adjoint_in_float64(port_laplacian):
+    """<Phi~ f, a> = <f, Phi~* a> on a small Block-ELL graph, float64."""
+    lap, lmax = port_laplacian
+    bell = tref.bsr_from_dense(lap.double(), 8, dtype=torch.float64)
+    dense = tref.bsr_to_dense(bell)
+    gen = torch.Generator().manual_seed(3)
+    coeffs = np.random.RandomState(3).randn(4, 13)
+    f = torch.randn(bell.n, 6, generator=gen, dtype=torch.float64)
+    a = torch.randn(4, bell.n, 6, generator=gen, dtype=torch.float64)
+    fwd = tcheb.cheb_apply(lambda v: dense @ v, f, coeffs, lmax)
+    back = tref.cheb_adjoint_union_ref(bell.blocks, bell.cols, a, coeffs, lmax)
+    assert back.dtype == torch.float64
+    lhs, rhs = float(torch.sum(fwd * a)), float(torch.sum(f * back))
+    assert abs(lhs - rhs) <= 1e-12 * float(fwd.abs().sum() * a.abs().max())
+
+
+def test_adjoint_wrapper_checks_operands(port_laplacian):
+    lap, lmax = port_laplacian
+    bell = tref.bsr_from_dense(lap, 8)
+    a = torch.randn(2, bell.n, 3)
+    with pytest.raises(ValueError, match="order 1"):
+        cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a, coeffs=[[1.0], [1.0]],
+                                         lmax=lmax)
+    with pytest.raises(ValueError, match="3 blocks"):
+        cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, torch.randn(3, bell.n, 3),
+                                         coeffs=np.ones((2, 4)), lmax=lmax)
+    with pytest.raises(ValueError, match="N ="):
+        cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a[:, :8],
+                                         coeffs=np.ones((2, 4)), lmax=lmax)
+    with pytest.raises(ValueError, match="eta, N"):
+        cheb_bsr.cheb_adjoint_union_cuda(bell.blocks, bell.cols, a[0, :, 0],
+                                         coeffs=np.ones((1, 4)), lmax=lmax)
+
+
 def test_bsr_matvec_ref_matches_reference(lap_operands):
     bell, _ = lap_operands
     x = np.random.RandomState(7).randn(bell.n, 3).astype(np.float32)
@@ -255,6 +329,22 @@ def test_select_tiling_fuses_only_what_the_kernel_holds(n_rows, block, fuse):
 def test_union_grid_barriers(f, f_tile, eta, order, block, want):
     """M - 1 barriers per pass and multiplier group, one between groups."""
     assert autotune.union_grid_barriers(f, f_tile, eta, order, block) == want
+
+
+def test_select_tiling_adjoint_adds_its_eta_input_columns():
+    """The adjoint reads the eta input columns of its pass at every order:
+    the same fuse rule, and at the lasso shape the forward's 4 passes of
+    64, with eta * N * 4 more bytes a column in the pass."""
+    fwd = autotune.select_tiling(8192, 256, 5, 1024, 10, 8)
+    adj = autotune.select_tiling(8192, 256, 5, 1024, 10, 8, adjoint=True)
+    assert adj.fuse and adj.f_tile == fwd.f_tile == 64
+    assert adj.pass_bytes - fwd.pass_bytes == 4 * 8192 * 64 * 4
+    assert adj.pass_bytes <= autotune.L2_BUDGET_BYTES
+    # Many multipliers: the L2 budget, not the resident grid, sets the pass.
+    wide = autotune.select_tiling(8192, 256, 60, 1024, 10, 8, adjoint=True)
+    assert wide.fuse and wide.f_tile == 19 and wide.pass_bytes <= autotune.L2_BUDGET_BYTES
+    for kw in ({}, {"adjoint": True}):
+        assert not autotune.select_tiling(8192, 256, 5, 1024, 10, 8, torch.bfloat16, **kw).fuse
 
 
 def test_select_tiling_l2_budget_limits_the_pass():

@@ -200,14 +200,17 @@ def test_launch_count_api_orders_union_then_step():
     from repro_torch.kernels import cheb_bsr
 
     cheb_bsr.reset_launch_counts()
-    assert cheb_bsr.launch_counts() == (0, 0)
-    cheb_bsr.add_launches((3, 20))
-    assert cheb_bsr.launch_counts() == (3, 20)
-    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches) == (3, 20)
-    cheb_bsr.add_launches((-3, -20))
-    assert cheb_bsr.launch_counts() == (0, 0)
+    assert cheb_bsr.launch_counts() == (0, 0, 0)
+    cheb_bsr.add_launches((3, 20, 2))
+    assert cheb_bsr.launch_counts() == (3, 20, 2)
+    assert (cheb_bsr.cheb_union_cuda.launches, cheb_bsr.cheb_step_cuda.launches,
+            cheb_bsr.cheb_adjoint_union_cuda.launches) == (3, 20, 2)
+    cheb_bsr.add_launches((-3, -20, -2))
+    assert cheb_bsr.launch_counts() == (0, 0, 0)
     with pytest.raises(ValueError):
         cheb_bsr.add_launches((1,))
+    with pytest.raises(ValueError):
+        cheb_bsr.add_launches((1, 0))
 
 
 def test_interop_carries_reference_state():
