@@ -6,6 +6,7 @@ Run one cell once from the root of a checkout::
 
 ``BENCHMARK.json`` at the root names the cells; each cell's configuration,
 traffic mix and per-layer metric readers are files of their own under
-``configs/``, ``traffic/`` and ``metrics/``, found by name. ``reference/``
-holds the plain PyTorch reference that decides ``correct``.
+``configs/``, ``traffic/`` and ``metrics/``, found by name, and each
+configuration names its program, a module under ``programs/``.
+``reference/`` holds the plain PyTorch references that decide ``correct``.
 """

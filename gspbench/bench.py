@@ -4,9 +4,30 @@
 are ``configs/<config>.json`` and ``traffic/<traffic>.json`` beside this
 module, and each per-layer metric is read by ``metrics/<metric>.py``
 (``read(ctx) -> float | None``) in the cells its ``workloads`` list names.
-``run_cell`` makes the inputs from the seed, builds the program, warms up,
-runs the window, reads the metrics, frees the program's state and judges
-the sampled answers against the plain reference.
+A configuration names its program, ``programs/<program>.py``, which holds
+all that is particular to it:
+
+* ``KINDS``: the traffic kinds its traffic files may name, each a driver
+  class (``span_names``; ``warm_up``, ``window``, ``operands``,
+  ``samples``, ``release``; ``device``);
+* ``start(cell, seed, device)``: the inputs from the seed, the program's
+  set-up and the driver's warm-up, as ``(inputs, program state, driver,
+  seconds per stage)``, the stages including ``prep_s``;
+* ``context(cell, inputs)``: what the per-layer readers read beyond the
+  generic context, as attributes of ``ctx``;
+* ``judge(cell, inputs, driver, samples, precision)``: the numbers
+  compared, from the plain reference under ``reference/``: at
+  ``"float64"`` the sampled answers, at ``"tf32"`` the control in their
+  place;
+* ``tiny(cell)``: the cell shrunk in place to a size the CPU tests run in
+  seconds (``tests/conftest.py``'s ``tiny_cell``).
+
+``run.py`` puts the checkout's ``src`` on the path before it looks up the
+cell, so a program module may import ``repro_torch`` at its top.
+
+``run_cell`` sets the precision, starts the program, runs the window,
+reads the metrics, frees the program's state and judges the sampled
+answers.
 """
 
 from __future__ import annotations
@@ -15,17 +36,16 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import sys
 import time
+import types
 from pathlib import Path
 
 import torch
 
-from gspbench import drivers, loadgen, profiling, program, work
-from gspbench.reference import cheb
-from gspbench.reference.graph import sensor_laplacian
+from gspbench import profiling, work
 
-__all__ = ["HERE", "Cell", "load_spec", "find_cell", "start", "release", "run_cell", "judge",
-           "readings"]
+__all__ = ["HERE", "Cell", "load_spec", "find_cell", "start", "release", "run_cell", "readings"]
 
 HERE = Path(__file__).resolve().parent
 
@@ -42,53 +62,85 @@ class Cell:
     chips: int
     end_to_end: list
     per_layer: list
+    program: types.ModuleType
 
 
 def _read_json(path: Path) -> dict:
     return json.loads(path.read_text())
 
 
+def _load_module(path: Path, name: str) -> types.ModuleType:
+    """The module at ``path``, run afresh and registered as ``name`` (a
+    dataclass resolves its string annotations through ``sys.modules``)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
 def find_cell(spec: dict, name: str, here: Path = HERE) -> Cell:
-    """The cell ``name`` with its configuration, traffic and metrics."""
+    """The cell ``name`` with its configuration, traffic, metrics and program."""
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json (have {sorted(cells)})")
     w = cells[name]
     configs = {c["name"]: c for c in spec["configs"]}
-    config = _read_json(here.parent / configs[w["config"]]["file"])
+    config_path = here.parent / configs[w["config"]]["file"]
+    config = _read_json(config_path)
     traffic = _read_json(here / "traffic" / f"{w['traffic']}.json")
+    program = _load_program(config, config_path, here)
+    if traffic["kind"] not in program.KINDS:
+        raise ValueError(f"traffic {w['traffic']!r} has kind {traffic['kind']!r}, which program "
+                         f"{config['program']!r} lacks (it has {sorted(program.KINDS)})")
     e2e = [m for m in spec["end_to_end"] if "workloads" not in m or name in m["workloads"]]
     per_layer = [m for m in spec["per_layer"] if name in m["workloads"]]
     return Cell(name=name, config=config, traffic=traffic, chips=w["chips"],
-                end_to_end=e2e, per_layer=per_layer)
+                end_to_end=e2e, per_layer=per_layer, program=program)
+
+
+def _load_program(config: dict, config_path: Path, here: Path) -> types.ModuleType:
+    """``programs/<program>.py`` of the configuration's ``program``."""
+    if "program" not in config:
+        raise ValueError(f"{config_path} names no program: a configuration's \"program\" is a "
+                         f"module under {here / 'programs'}")
+    path = here / "programs" / f"{config['program']}.py"
+    if not path.is_file():
+        have = sorted(p.stem for p in (here / "programs").glob("*.py"))
+        raise ValueError(f"{config_path} names program {config['program']!r}, and there is no "
+                         f"{path} (have {have})")
+    return _load_module(path, f"gspbench_program_{config['program']}")
 
 
 def load_reader(metric: str, here: Path = HERE):
     """``metrics/<metric>.py``'s ``read``."""
-    path = here / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"gspbench_metric_{metric}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load_module(here / "metrics" / f"{metric}.py", f"gspbench_metric_{metric}").read
 
 
 @dataclasses.dataclass
 class ReadContext:
     """What a per-layer metric's reader may read: the cell, the program and
     the operands of its timed calls, the traced slice, the counters of the
-    window, the graph's nonzeros (from the reference's graph) and the
-    benchmark's yardsticks."""
+    window, the program's set-up seconds, the benchmark's yardsticks, and
+    as attributes what the cell's program adds (``extra``, from its
+    ``context``)."""
 
     cell: Cell
     device: torch.device
-    prog: program.Program
+    prog: object
     operands: dict
     trace: profiling.TraceSummary | None
     counters: dict
     prep_s: float
-    nnz: int
+    extra: dict
     work = work
     profiling = profiling
+
+    def __getattr__(self, name: str):
+        extra = self.__dict__.get("extra", {})
+        if name in extra:
+            return extra[name]
+        raise AttributeError(f"{type(self).__name__} has no {name!r}")
 
     def device_seconds_per_call(self, fn):
         return profiling.device_seconds_per_call(fn, self.device)
@@ -97,38 +149,15 @@ class ReadContext:
         return profiling.event_seconds(fn, self.device)
 
 
-def judge(driver, samples, precision: str, lap, config: dict) -> dict:
-    """The numbers compared: per check, the worst relative error of the
-    sampled answers (``samples``: (check, key, answer)) against the float64
-    reference. ``precision="tf32"`` judges the control, the reference in
-    float32 with TF32 Laplacian products, in the answers' place."""
-    lmax = lap.lmax_bound()
-    coeffs = cheb.cheb_coefficients(cheb.sgwt_bank(lmax, config["n_scales"], config["sgwt_k"]),
-                                    config["order"], lmax)
-    ref64 = lap.operator("float64")
-    numbers, by_check = {}, {}
-    for check, key, answer in samples:
-        by_check.setdefault(check, []).append((key, answer))
-    for check, items in sorted(by_check.items()):
-        keys = [k for k, _ in items]
-        want = driver.reference(check, keys, ref64, coeffs, lmax, torch.float64)
-        if precision == "tf32":
-            got = driver.reference(check, keys, lap.operator("tf32"), coeffs, lmax, torch.float32)
-            items = [(k, got[k]) for k in keys]
-        numbers[check] = max(drivers.rel_err(answer, want[k]) for k, answer in items)
-    return numbers
-
-
 def readings(cell: Cell, seed: int, device: torch.device, seconds: float) -> tuple[dict, dict]:
     """The numbers compared, for the program (a short window at the cell's
-    own size and load) and for the control judged on the same inputs."""
-    coords, prog, driver, _ = start(cell, seed, device)
+    own size and load) and for the control (TF32) judged on the same inputs."""
+    inputs, prog, driver, _ = start(cell, seed, device)
     driver.window(seconds, profiling.Tracer(False, device))
     del prog
-    lap = reference_laplacian(cell, coords)
     samples = release(driver)
-    return (judge(driver, samples, "float64", lap, cell.config),
-            judge(driver, samples, "tf32", lap, cell.config))
+    return (cell.program.judge(cell, inputs, driver, samples, "float64"),
+            cell.program.judge(cell, inputs, driver, samples, "tf32"))
 
 
 def _set_precision(config: dict) -> None:
@@ -146,26 +175,10 @@ def _read_per_layer(cell: Cell, ctx: ReadContext) -> dict:
 
 
 def start(cell: Cell, seed: int, device: torch.device):
-    """The deployment's sensors (from the configuration's ``graph_seed``: one
-    field, whose tiling sets the work), the inputs from the run's seed, the
-    program's set-up and the driver's warm-up: (positions, program, driver,
-    seconds per stage: ``positions_s`` (with the device's first use),
-    ``prep_s``, ``warm_up_s``)."""
+    """The configuration's precision, then the cell's program's ``start``:
+    (inputs, program state, driver, seconds per stage)."""
     _set_precision(cell.config)
-    t0 = time.perf_counter()
-    placement = torch.Generator(device=device).manual_seed(cell.config["graph_seed"])
-    coords = loadgen.sensor_positions(placement, cell.config["n_vertices"], device)
-    gen = torch.Generator(device=device).manual_seed(seed % 2**63)
-    _sync(device)
-    t_prep = time.perf_counter()
-    prog = program.build(cell.config, coords)
-    _sync(device)
-    t_driver = time.perf_counter()
-    driver = drivers.KINDS[cell.traffic["kind"]](prog, cell.traffic, seed, gen)
-    driver.warm_up()
-    stages = {"positions_s": t_prep - t0, "prep_s": t_driver - t_prep,
-              "warm_up_s": time.perf_counter() - t_driver}
-    return coords, prog, driver, stages
+    return cell.program.start(cell, seed, device)
 
 
 def release(driver) -> list:
@@ -178,17 +191,13 @@ def release(driver) -> list:
     return samples
 
 
-def reference_laplacian(cell: Cell, coords: torch.Tensor):
-    sigma, kappa = program.scaled_kernel(cell.config)
-    return sensor_laplacian(coords, sigma, kappa)
-
-
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device,
              t_start: float) -> dict:
     """One run; the result line's fields, ``checks`` last."""
     t_entry = time.perf_counter()
-    tracer = profiling.Tracer(trace, device, drivers.KINDS[cell.traffic["kind"]].span_names)
-    coords, prog, driver, stages = start(cell, seed, device)
+    program = cell.program
+    tracer = profiling.Tracer(trace, device, program.KINDS[cell.traffic["kind"]].span_names)
+    inputs, prog, driver, stages = start(cell, seed, device)
     tracer.warm_up()
     setup_s = time.perf_counter() - t_start
     stages = {"entry_s": t_entry - t_start, **stages,
@@ -201,18 +210,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.d
     peak = _peak_and_reset(device)
     tracer.finish()
 
-    lap = reference_laplacian(cell, coords)
     if trace:
         metrics = _read_per_layer(cell, ReadContext(
             cell=cell, device=device, prog=prog, operands=driver.operands(),
             trace=tracer.summary, counters=out["counters"], prep_s=stages["prep_s"],
-            nnz=lap.nnz))
+            extra=program.context(cell, inputs)))
     else:
         values = dict(out["metrics"], setup_s=setup_s)
         metrics = {m["name"]: {"value": float(values[m["name"]]), "unit": m["unit"]}
                    for m in cell.end_to_end}
     del prog
-    numbers = judge(driver, release(driver), "float64", lap, cell.config)
+    numbers = program.judge(cell, inputs, driver, release(driver), "float64")
     checks = {name: {"value": numbers.get(name), "limit": limit}
               for name, limit in cell.traffic["limits"].items()}
     correct = out["unanswered"] == 0 and all(
@@ -242,8 +250,3 @@ def _peak_and_reset(device: torch.device) -> int:
     peak = torch.cuda.max_memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     return int(peak)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

@@ -83,13 +83,13 @@ def main(argv=None) -> int:
 
     from gspbench import bench
 
+    sys.path.insert(1, str(ROOT / "src"))
     cell = bench.find_cell(bench.load_spec(ROOT), args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"gspbench: {args.workload} needs {cell.chips} CUDA device(s), found {n}",
               file=sys.stderr)
         return 1
-    sys.path.insert(1, str(ROOT / "src"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     result = bench.run_cell(cell, args.seed, args.seconds, bool(args.trace), device, T_START)

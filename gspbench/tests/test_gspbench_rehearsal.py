@@ -28,7 +28,8 @@ def test_rehearsal(tiny_cell, name, trace):
     assert list(res)[-1] == "checks" and res["failed"] == 0 and res["attempted"] > 0
     if trace:
         want = {m["name"] for m in cell.per_layer}
-        assert set(res["metrics"]) <= want and "prep_s" in res["metrics"]
+        assert res["metrics"] and set(res["metrics"]) <= want
+        assert "prep_s" in res["metrics"] or "prep_s" not in want
         assert res["device"]["window_s"] > 0
     else:
         assert set(res["metrics"]) == {m["name"] for m in cell.end_to_end}

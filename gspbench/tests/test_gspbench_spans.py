@@ -13,13 +13,23 @@ from gspbench import bench
 from conftest import ROOT
 
 SPEC = bench.load_spec(ROOT)
-KIND_CELLS = {}
-for _w in SPEC["workloads"]:
-    KIND_CELLS.setdefault(bench.find_cell(SPEC, _w["name"]).traffic["kind"], _w["name"])
+CELLS = {w["name"]: bench.find_cell(SPEC, w["name"]) for w in SPEC["workloads"]}
+SENSOR_CELLS = [n for n, c in CELLS.items() if c.config["program"] == "sensor_sgwt"]
 
 
 def _span_metrics(cell):
     return sorted(m["name"] for m in cell.per_layer if m["source"] == "program_span")
+
+
+# One cell of each traffic kind whose cells list span metrics.
+KIND_CELLS = {}
+for _name, _cell in CELLS.items():
+    if _span_metrics(_cell):
+        KIND_CELLS.setdefault(_cell.traffic["kind"], _name)
+
+
+def test_every_kind_of_the_sensor_program_reads_spans():
+    assert {CELLS[n].traffic["kind"] for n in SENSOR_CELLS} <= set(KIND_CELLS)
 
 
 @pytest.mark.parametrize("name", sorted(KIND_CELLS.values()))
@@ -44,11 +54,15 @@ def test_span_metrics_read_a_number(tiny_cell, name, monkeypatch):
         assert bench.load_reader(metric)(None) is None, metric
 
 
+def _workloads(metric):
+    return next(m["workloads"] for m in SPEC["per_layer"] if m["name"] == metric)
+
+
 def test_readers_read_nothing_without_a_session():
     from repro_torch import telemetry
 
     telemetry.clear()
     names = sorted(m["name"] for m in SPEC["per_layer"] if m["source"] == "program_span")
-    assert len(names) == 7
+    assert len([m for m in names if set(SENSOR_CELLS) & set(_workloads(m))]) == 7
     for metric in names:
         assert bench.load_reader(metric)(None) is None, metric
