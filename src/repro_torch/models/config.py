@@ -10,15 +10,18 @@ return the torch dtypes of the same names.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Sequence
+from typing import ClassVar, Literal, Sequence
 
 import torch
 
-__all__ = ["MoEConfig", "MambaConfig", "ModelConfig", "ShapeConfig",
-           "ParallelConfig", "LayerKind", "torch_dtype"]
+__all__ = ["MoEConfig", "DroplessMoEConfig", "MambaConfig", "ModelConfig", "YarnRope",
+           "MLAConfig", "MLAModelConfig", "ShapeConfig", "ParallelConfig", "LayerKind",
+           "torch_dtype"]
 
-# Layer kinds a block pattern can contain.
-LayerKind = Literal["attn", "local_attn", "mamba", "mlstm", "slstm"]
+# Layer kinds a block pattern can contain ("mla": multi-head latent
+# attention, in an ``MLAModelConfig`` only).
+LayerKind = Literal["attn", "local_attn", "mla", "mamba", "mlstm", "slstm"]
+ATTENTION_KINDS = ("attn", "local_attn", "mla")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -43,9 +46,28 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_noise: float = 0.0
 
+    # The reference's routing rule: the top-k gates renormalised to sum to
+    # one, a per-expert capacity buffer that drops tokens past it.
+    # ``DroplessMoEConfig`` changes both; they are class attributes here,
+    # so that ``dataclasses.asdict`` of every reference config keeps the
+    # reference's fields.
+    norm_topk: ClassVar[bool] = True
+    dropless: ClassVar[bool] = False
+
     @property
     def active_experts(self) -> int:
         return self.top_k + self.n_shared
+
+
+@dataclasses.dataclass(frozen=True)
+class DroplessMoEConfig(MoEConfig):
+    """DeepSeek-V2's router: softmax scores, greedy top-k, the chosen
+    scores renormalised only where ``norm_topk``; no token is dropped at
+    any batch size (each expert computes exactly the tokens routed to it;
+    ``capacity_factor`` is unused)."""
+
+    norm_topk: bool = False
+    dropless: ClassVar[bool] = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,21 +159,73 @@ class ModelConfig:
     @property
     def has_attention(self) -> bool:
         kinds = list(self.pattern) + [k for k, _ in self.prefix_layers]
-        return any(k in ("attn", "local_attn") for k in kinds)
+        return any(k in ATTENTION_KINDS for k in kinds)
 
     @property
     def pure_full_attention(self) -> bool:
-        """True if every mixing layer is (possibly windowed) softmax
-        attention AND at least one layer is global full attention."""
+        """True if every mixing layer is (possibly windowed or latent)
+        softmax attention AND at least one layer is global full attention."""
         kinds = list(self.pattern) + [k for k, _ in self.prefix_layers]
-        return all(k in ("attn", "local_attn") for k in kinds) and (
-            "attn" in kinds)
+        return all(k in ATTENTION_KINDS for k in kinds) and (
+            "attn" in kinds or "mla" in kinds)
 
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.activation_dtype)
 
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnRope:
+    """YaRN rotary scaling (arXiv:2309.00071, DeepSeek-V2's variant):
+    positions past ``original_max_position`` interpolated by ``factor``
+    on the low frequencies, the high ones kept, a linear ramp between
+    the dimensions that ``beta_fast`` and ``beta_slow`` rotations bound."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434): keys
+    and values come up from one ``kv_lora_rank``-wide latent per token;
+    each head's query and key are a ``qk_nope_head_dim`` part and a
+    ``qk_rope_head_dim`` rotary part whose key all heads share."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_scaling: YarnRope | None = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a latent cache holds per token and layer: the latent and
+        the shared rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAModelConfig(ModelConfig):
+    """A ``ModelConfig`` whose ``mla`` layers take their widths from ``mla``
+    (a subclass, so that the reference's configs keep their fields)."""
+
+    mla: MLAConfig | None = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.mla is None:
+            raise ValueError(f"{self.name}: an MLAModelConfig needs mla=")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@
 Mirrors ``repro/models/lm.py``. A model is: embedding -> [prefix layers]
 -> repeated block patterns -> final norm -> (tied) unembedding. Each
 pattern entry is a (mixing layer kind, ffn kind) pair; kinds cover
-full/local attention, Mamba, mLSTM and sLSTM; ffns cover dense
+full/local attention, latent attention (``mla``, in an ``MLAModelConfig``:
+no counterpart in the reference), Mamba, mLSTM and sLSTM; ffns cover dense
 (swiglu/geglu/relu2) and MoE.
 
 The functions work on a tree of tensors with the reference's structure:
@@ -31,12 +32,17 @@ Entry points:
   forward(params, tokens, ...)    -> (logits, aux)               [train/prefill]
   loss_fn(params, batch, ...)     -> (loss, metrics)              [differentiable]
   init_cache / prefill / decode_step                              [serving]
+  extend / rewind                     [sessions over attention and latent caches]
 
 ``decode_step`` updates the cache IN PLACE and returns it: the token's
 k/v go into the attention buffers at ``len``, recurrent states are
 overwritten, and ``len`` / ``pos`` (0-d int32 device tensors) advance on
 the device, so a step copies no cache and makes no host sync. A caller
 gives its cache up to the step, as jit donation does in the reference.
+``extend`` does the same for several tokens at once and ``rewind`` sets
+the lengths back, so that a session's later tokens are overwritten; both
+take only attention and latent caches, whose rows past the length are
+masked.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig, ParallelConfig
@@ -57,7 +64,7 @@ from repro_torch.models.sharding import ShardingRules, constrain, stack_specs
 from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["init", "abstract_init", "forward", "loss_fn", "init_cache",
-           "decode_step", "prefill", "cache_logical_specs"]
+           "decode_step", "prefill", "extend", "rewind", "cache_logical_specs"]
 
 
 # ------------------------------------------------------------- blocks ---
@@ -68,6 +75,8 @@ def _init_block(rng: L.Init, cfg: ModelConfig, kind: str, ffn_kind: str, dtype):
     p["norm1"], s["norm1"] = L.init_norm(rng, cfg, dtype)
     if kind in ("attn", "local_attn"):
         p["mix"], s["mix"] = L.init_attention(rng, cfg, dtype)
+    elif kind == "mla":
+        p["mix"], s["mix"] = MLA.init_mla(rng, cfg, dtype)
     elif kind == "mamba":
         p["mix"], s["mix"] = M.init_mamba(rng, cfg, dtype)
     elif kind == "mlstm":
@@ -109,6 +118,8 @@ def _apply_block(
             p["mix"], h, cfg, rules=rules, positions=positions,
             window=window, impl=par.attn_impl, chunk=par.attn_chunk,
             cache=cache)
+    elif kind == "mla":
+        h, new_cache = MLA.apply_mla(p["mix"], h, cfg, positions=positions, cache=cache)
     elif kind == "mamba":
         h, new_cache = M.apply_mamba(
             p["mix"], h, cfg, rules=rules, chunk=par.mamba_chunk, state=cache)
@@ -140,6 +151,8 @@ def _apply_block(
 def _make_block_cache(cfg, kind: str, batch: int, s_max: int, dtype, device, lead=()):
     if kind in ("attn", "local_attn"):
         return L.make_cache(cfg, batch, s_max, dtype, device, lead)
+    if kind == "mla":
+        return MLA.make_latent_cache(cfg, batch, s_max, dtype, device, lead)
     if kind == "mamba":
         return M.make_mamba_state(cfg, batch, dtype, device, lead)
     if kind == "mlstm":
@@ -316,6 +329,8 @@ def _block_cache_specs(cfg: ModelConfig, kind: str):
             "v": ("act_kv_batch", "act_kv_seq", "act_kv_heads", None),
             "len": (),
         }
+    if kind == "mla":
+        return {"latent": ("act_kv_batch", "act_kv_seq", None), "len": ()}
     if kind == "mamba":
         return {"conv": ("act_batch", None, "act_ffn"),
                 "ssm": ("act_batch", "act_ffn", None)}
@@ -350,8 +365,32 @@ def decode_step(
     """One decode step: token (B, 1) int -> (logits (B, 1, V), cache).
 
     The cache is updated in place and returned (module docstring)."""
-    x = _embed_tokens(params, cfg, token, None, rules)
-    positions = cache["pos"][None]
+    return _through_cache(params, token, cache, cache["pos"][None], cfg, par, rules)
+
+
+def extend(
+    params,
+    tokens,
+    cache,
+    cfg: ModelConfig,
+    par: ParallelConfig,
+    rules: ShardingRules | None = None,
+    last_only: bool = False,
+):
+    """Run tokens (B, q) on from the cache's position through the cache:
+    each token attends over the cache and the tokens before it. Returns
+    (logits (B, q, V), or (B, 1, V) with ``last_only``, cache); the cache
+    is updated in place. Latent-attention caches only (a per-head
+    attention cache masks one new token at a time)."""
+    kinds = {k for k, _ in cfg.prefix_layers} | set(cfg.pattern)
+    if kinds != {"mla"}:
+        raise ValueError(f"{cfg.name}: extend runs latent-attention layers only, not {kinds}")
+    positions = cache["pos"] + torch.arange(tokens.shape[1], device=cache["pos"].device)
+    return _through_cache(params, tokens, cache, positions, cfg, par, rules, last_only)
+
+
+def _through_cache(params, tokens, cache, positions, cfg, par, rules, last_only=False):
+    x = _embed_tokens(params, cfg, tokens, None, rules)
 
     for i, (kind, ffn_kind) in enumerate(cfg.prefix_layers):
         x, _, _ = _apply_block(params["prefix"][i], x, cfg, par, rules, kind, ffn_kind,
@@ -361,10 +400,25 @@ def decode_step(
         for i, (kind, ffn_kind) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
             x, _, _ = _apply_block(p_group[i], x, cfg, par, rules, kind, ffn_kind,
                                    positions, cache=c_group[i])
-    cache["pos"].add_(1)
+    cache["pos"].add_(tokens.shape[1])
 
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    if last_only:
+        x = x[:, -1:]
     return _unembed(params, cfg, x, rules), cache
+
+
+def rewind(cache, length: int, cfg: ModelConfig):
+    """Set the cache back to its first ``length`` tokens, in place: the
+    rows after them are masked until later tokens overwrite them.
+    Attention and latent caches only (recurrent state has no rows)."""
+    kinds = {k for k, _ in cfg.prefix_layers} | set(cfg.pattern)
+    if not kinds <= {"attn", "local_attn", "mla"}:
+        raise ValueError(f"{cfg.name}: recurrent state cannot rewind ({sorted(kinds)})")
+    for layer in [*cache.get("prefix", []), *cache["blocks"]]:
+        layer["len"].fill_(length)
+    cache["pos"].fill_(length)
+    return cache
 
 
 def prefill(
@@ -380,7 +434,8 @@ def prefill(
 
     As in the reference: the train path for the logits, plus a second
     k/v projection per attention block to fill the cache, and for
-    recurrent blocks a token-sequential pass that builds the state.
+    recurrent blocks a token-sequential pass that builds the state. A
+    latent-attention block writes its latent rows (``mla.latent_rows``).
     """
     b, s = tokens.shape
     s_max = s_max or s
@@ -399,6 +454,10 @@ def prefill(
             k = L.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
             cache["k"][:, :s].copy_(k)
             cache["v"][:, :s].copy_(v)
+            cache["len"].fill_(s)
+        elif kind == "mla":
+            h = L.apply_norm(p_block["norm1"], x, cfg.norm)
+            cache["latent"][:, :s].copy_(MLA.latent_rows(p_block["mix"], h, cfg, positions))
             cache["len"].fill_(s)
         else:
             _prefill_state(p_block, x, cfg, par, rules, kind, cache)

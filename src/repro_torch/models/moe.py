@@ -16,6 +16,12 @@ a full expert drops:
   so within an expert the earlier token keeps its capacity slot;
 * pairs past an expert's capacity go to the sentinel row ``E * cap``,
   which is dropped, and the combine is an ``index_add_`` over tokens.
+
+A ``DroplessMoEConfig`` (DeepSeek-V2; no counterpart in the reference)
+keeps the chosen scores as they are unless ``norm_topk`` and dispatches
+without a capacity: the (token, slot) pairs sorted by expert, every expert
+computes exactly its tokens (``_dropless_experts``), and the gate-weighted
+sum over a token's slots runs in f32.
 """
 
 from __future__ import annotations
@@ -25,11 +31,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, apply_dense_ffn, init_dense_ffn
 from repro_torch.models.sharding import ShardingRules, constrain
 
-__all__ = ["init_moe", "apply_moe", "top_k_lower_index", "group_capacity"]
+__all__ = ["init_moe", "apply_moe", "top_k_lower_index", "group_capacity", "STATIC_DEPTH_TOKENS"]
+
+# Up to this many tokens (a decode step's batch) a dropless dispatch runs the
+# experts as one batched product over a buffer as deep as the token count,
+# which needs no host read; past it, each expert on exactly its tokens.
+STATIC_DEPTH_TOKENS = 64
 
 
 def init_moe(rng: Init, cfg: ModelConfig, dtype) -> tuple[dict, dict]:
@@ -112,24 +124,45 @@ def apply_moe(
     t = b * s
     e, k = moe.n_experts, moe.top_k
     g, cap = group_capacity(t, n_groups, k, e, cf)
-    tg = t // g
     xf = x.reshape(t, d)
 
-    logits = xf.float() @ p["router"]  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate, idx = top_k_lower_index(probs, k)  # (T, k)
-    gate = gate / gate.sum(-1, keepdim=True)
+    with telemetry.span("moe.route", tokens=t):
+        logits = xf.float() @ p["router"]  # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate, idx = top_k_lower_index(probs, k)  # (T, k)
+        if moe.norm_topk:
+            gate = gate / gate.sum(-1, keepdim=True)
 
-    # Switch-style load-balance auxiliary loss.
-    density = F.one_hot(idx[:, 0], e).float().mean(0)
-    router_mean = probs.mean(0)
-    aux = e * torch.sum(density * router_mean)
+        # Switch-style load-balance auxiliary loss.
+        density = F.one_hot(idx[:, 0], e).float().mean(0)
+        router_mean = probs.mean(0)
+        aux = e * torch.sum(density * router_mean)
+    if telemetry.on():
+        telemetry.count("moe.expert_tokens", _expert_counts(idx.reshape(-1), e))
 
+    with telemetry.span("moe.experts", tokens=t):
+        if moe.dropless:
+            out = _dropless_experts(p, xf, gate, idx, e)
+        else:
+            out = _capacity_experts(p, xf, gate, idx, rules, g, cap)
+        if moe.n_shared:
+            out = out + apply_dense_ffn(p["shared"], xf, cfg.act)
+    return out.reshape(b, s, d), aux
+
+
+def _capacity_experts(p, xf, gate, idx, rules, g: int, cap: int):
+    """The reference's dispatch: ``g`` groups, each into its own (E, cap)
+    buffer; pairs past an expert's capacity are dropped."""
+    t, d = xf.shape
+    e, k = p["wi_gate"].shape[0], idx.shape[-1]
+    tg = t // g
     xg = constrain(xf.reshape(g, tg, d), rules, "act_moe_group", None, None)
     gate_g = gate.reshape(g, tg, k)
     idx_g = idx.reshape(g, tg, k)
 
     groups = [_group_dispatch(xg[i], gate_g[i], idx_g[i], e, cap) for i in range(g)]
+    if telemetry.on():
+        telemetry.count("moe.dropped_tokens", sum((gr[1] == e * cap).sum() for gr in groups))
     buf = torch.stack([gr[0] for gr in groups])  # (g, e, cap, d)
     buf = constrain(buf, rules, "act_moe_group", "act_experts", None, None)
 
@@ -140,8 +173,63 @@ def apply_moe(
 
     out = torch.stack([_group_combine(y[i], dest, token_of, gates, tg)
                        for i, (_, dest, token_of, gates) in enumerate(groups)])
-    out = constrain(out, rules, "act_moe_group", None, None).reshape(t, d)
+    return constrain(out, rules, "act_moe_group", None, None).reshape(t, d)
 
-    if moe.n_shared:
-        out = out + apply_dense_ffn(p["shared"], xf, cfg.act)
-    return out.reshape(b, s, d), aux
+
+def _expert_counts(flat: torch.Tensor, e: int) -> torch.Tensor:
+    """(E,) pairs per expert, without a host read (``torch.bincount`` on a
+    CUDA tensor reads the largest index back to size its output)."""
+    return torch.zeros(e, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
+def _dropless_experts(p, xf, gate, idx, e: int):
+    """Every (token, slot) pair computed by its expert, pairs sorted by
+    expert (stable). Up to ``STATIC_DEPTH_TOKENS`` tokens the sorted pairs
+    fill an (E, T) buffer (no expert holds more than T pairs) for one
+    batched product per matrix, its rows past an expert's count zeros
+    whose outputs are never read; past it, each expert's SwiGLU runs on
+    exactly its slice of the sorted pairs (one host read of the counts).
+    Returns (T, d): each token's gate-weighted sum in f32.
+
+    While telemetry records, ``moe.dropped_tokens`` counts the pairs whose
+    expert output the dispatch did not compute: a slot past its expert's
+    T rows or shared with another pair, or a sorted pair outside every
+    expert's slice."""
+    t, d = xf.shape
+    k = idx.shape[-1]
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = _expert_counts(flat, e)
+    xs = xf[order // k]
+    record = telemetry.on()
+    if t <= STATIC_DEPTH_TOKENS:
+        sorted_e = flat[order]
+        starts = torch.cumsum(counts, 0) - counts
+        depth = torch.arange(t * k, device=xf.device) - starts[sorted_e]
+        slot = sorted_e * t + depth
+        buf = torch.zeros((e * t, d), dtype=xf.dtype, device=xf.device)
+        buf[slot] = xs
+        buf = buf.view(e, t, d)
+        h = torch.bmm(buf, p["wi_gate"])
+        u = torch.bmm(buf, p["wi_up"])
+        ys = torch.bmm(F.silu(h) * u, p["wo"]).view(e * t, d)[slot]
+        if record:
+            served = (depth < t) & (_expert_counts(slot, e * t)[slot] == 1)
+    else:
+        ys = torch.empty_like(xs)
+        served = torch.zeros(t * k, dtype=torch.bool, device=xf.device) if record else None
+        start = 0
+        for ex, n in enumerate(counts.tolist()):
+            if n:
+                xe = xs[start:start + n]
+                h = F.silu(xe @ p["wi_gate"][ex]) * (xe @ p["wi_up"][ex])
+                torch.mm(h, p["wo"][ex], out=ys[start:start + n])
+                if record:
+                    served[start:start + n] = True
+            start += n
+    if record:
+        telemetry.count("moe.dropped_tokens", t * k - served.sum())
+    y = torch.empty_like(ys)
+    y[order] = ys
+    return torch.einsum("tkd,tk->td", y.view(t, k, d).float(), gate).to(xf.dtype)

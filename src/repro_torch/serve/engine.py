@@ -10,7 +10,12 @@ the cache on its ``device`` (default ``cuda``, raising without it) and
 hands the generated ids back as a host numpy array. Greedy decoding
 (``temperature=0``) gives the reference's tokens; sampling draws from a
 ``torch.Generator`` seeded with ``seed``, deterministic per seed but not
-jax's stream.
+jax's stream. Beside ``generate`` it keeps resident sessions (no
+counterpart in the reference; latent-attention models): ``open_sessions``
+prefills B documents of one length into one cache, one at a time, and
+each ``turn`` extends every session by a question, decodes a greedy
+answer (on a card, after the first turn, by replaying the decode step
+recorded as a CUDA graph) and rewinds the cache to the documents' end.
 
 ``GraphFilterEngine`` — graph-signal filtering as a service: incoming
 (N,)-signal requests are packed into an (N, F) panel and answered by ONE
@@ -39,13 +44,15 @@ panel is a plain ``filt.apply`` (the async engine holds the programs).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device, upload
+from repro_torch import telemetry
+from repro_torch.device import pinned_uploads, resolve_device, upload
 from repro_torch.filters import GraphFilter
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ParallelConfig
@@ -59,6 +66,7 @@ __all__ = [
     "make_decode_step",
     "make_prefill",
     "ServeEngine",
+    "Sessions",
     "GraphFilterEngine",
     "lasso_panel_solver",
 ]
@@ -88,13 +96,58 @@ def make_prefill(
     return prefill
 
 
+def _copy_row(dst: dict, src: dict, row: int) -> None:
+    """A one-row cache ``src`` into batch row ``row`` of ``dst`` (caches of
+    one ``s_max``): each layer's row tensors, whose batch axis follows the
+    layer's stacking axes, its length, and the position."""
+    for d, r in zip([*dst.get("prefix", []), *dst["blocks"]],
+                    [*src.get("prefix", []), *src["blocks"]]):
+        axis = d["len"].dim()
+        for name, t in d.items():
+            if name != "len":
+                t.select(axis, row).copy_(r[name].select(axis, 0))
+        d["len"].copy_(r["len"])
+    dst["pos"].copy_(src["pos"])
+
+
+@dataclasses.dataclass
+class _DecodeGraphs:
+    """The sessions' decode step recorded as CUDA graphs that read the token
+    from ``token``: ``plain`` and ``instrumented`` (its spans and counters
+    kept by ``telemetry.capture_records``), each ``(graph, logits,
+    records)`` with ``logits`` its static output; ``held``, the cached
+    uploads the captures read (``device.pinned_uploads``)."""
+
+    token: torch.Tensor
+    plain: tuple
+    instrumented: tuple
+    held: dict
+
+
+@dataclasses.dataclass
+class Sessions:
+    """Resident sessions: one cache whose B rows each hold a document of
+    ``length`` tokens, with the engine's ``s_max`` rows of room, and on a
+    CUDA device the decode step recorded over that cache (``graphs``,
+    after the first turn)."""
+
+    cache: dict
+    length: int
+    graphs: _DecodeGraphs | None = dataclasses.field(default=None, repr=False)
+
+    @property
+    def cache_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(self.cache))
+
+
 @dataclasses.dataclass
 class ServeEngine:
     """Static-slot batched generation on ``device``.
 
     ``params`` must already be on the engine's device. Without ``eos_id``
     a generation makes no host sync until its last step: the tokens
-    collect on the device and come back in one copy."""
+    collect on the device and come back in one copy. ``sessions`` holds
+    the resident sessions ``open_sessions`` built, or None."""
 
     cfg: ModelConfig
     par: ParallelConfig
@@ -111,6 +164,101 @@ class ServeEngine:
                 raise ValueError(f"params on {t.device}, engine on {self.device}")
         self._decode = make_decode_step(self.cfg, self.par, self.rules)
         self._prefill = make_prefill(self.cfg, self.par, self.rules, s_max=self.s_max)
+        self.sessions: Sessions | None = None
+
+    @torch.inference_mode()
+    def open_sessions(self, documents: np.ndarray) -> Sessions:
+        """documents (B, S) ids -> B resident sessions in one cache of
+        ``s_max`` rows. Each document is prefilled alone and its one-row
+        cache copied into its row, so one document's prefill and cache
+        are the largest transient."""
+        b, s = documents.shape
+        if s >= self.s_max:
+            raise ValueError(f"documents of {s} tokens leave no room in s_max={self.s_max}")
+        self.sessions = None
+        cache = lm.init_cache(self.cfg, b, self.s_max, self.cfg.dtype(), self.device)
+        for i in range(b):
+            with telemetry.span("lm.session_prefill", device=True, rows=1, tokens=s):
+                tokens = upload(np.asarray(documents[i:i + 1], np.int64), self.device)
+                _copy_row(cache, self._prefill(self.params, tokens)[1], i)
+        self.sessions = Sessions(cache=cache, length=s)
+        return self.sessions
+
+    @torch.inference_mode()
+    def turn(self, questions: np.ndarray, n: int) -> tuple[np.ndarray, torch.Tensor]:
+        """One turn of every session: extend each by its question (B, q),
+        decode ``n`` greedy answer tokens, then rewind the cache to the
+        documents' end. Returns the answers' ids (B, n) on the host and
+        the logits that chose them, (B, n, V) on the device.
+
+        On a CUDA device the first turn decodes eagerly and then records
+        the decode step (``_record_decode``); later turns replay it, the
+        instrumented graph while a profiler records. A step reads its
+        position from the cache, so one recording serves every turn."""
+        sess = self.sessions
+        if sess is None:
+            raise ValueError("no sessions: call open_sessions first")
+        b, q = questions.shape
+        if sess.length + q + n - 1 > self.s_max:
+            raise ValueError(f"a turn of {q} + {n} tokens does not fit s_max={self.s_max} "
+                             f"after {sess.length}")
+        if telemetry.on():
+            telemetry.count("lm.latent_cache_bytes", sess.cache_bytes)
+        tokens = upload(np.asarray(questions, np.int64), self.device)
+        with telemetry.span("lm.extend", device=True, rows=b, tokens=q):
+            logits, cache = lm.extend(self.params, tokens, sess.cache, self.cfg, self.par,
+                                      self.rules, last_only=True)
+        out = torch.empty((b, n, logits.shape[-1]), dtype=logits.dtype, device=self.device)
+        ids = torch.empty((b, n), dtype=torch.int64, device=self.device)
+        for t in range(n):
+            out[:, t] = logits[:, -1]
+            ids[:, t] = torch.argmax(logits[:, -1], dim=-1)
+            if t + 1 < n:
+                with telemetry.span("lm.decode_step", device=True, rows=b,
+                                    position=sess.length + q + t) as sp:
+                    logits, records = self._session_step(ids[:, t:t + 1])
+                if records is not None:
+                    records.emit(sp)
+        answers = ids.cpu().numpy()
+        if sess.graphs is None and self.device.type == "cuda":
+            sess.graphs = self._record_decode(b)
+        lm.rewind(cache, sess.length, self.cfg)
+        return answers, out
+
+    def _session_step(self, token: torch.Tensor):
+        """One decode step of the sessions on token (B, 1): (logits (B, 1,
+        V), the replayed graph's records or None). A replay's logits are
+        its static output, rewritten by the next replay."""
+        graphs = self.sessions.graphs
+        if graphs is None:
+            return self._decode(self.params, token, self.sessions.cache)[0], None
+        graphs.token.copy_(token)
+        graph, logits, records = graphs.instrumented if telemetry.on() else graphs.plain
+        graph.replay()
+        return logits, records
+
+    def _record_decode(self, b: int) -> _DecodeGraphs:
+        """The sessions' decode step recorded twice, plain and instrumented,
+        on one static token input. Recording runs nothing; each graph is
+        then replayed once at the documents' end (rewound before each), so
+        that no later turn makes a graph's first replay. The caller
+        rewinds after."""
+        sess = self.sessions
+        token = torch.zeros((b, 1), dtype=torch.int64, device=self.device)
+        recorded = []
+        with pinned_uploads() as held:
+            for instrumented in (False, True):
+                graph = torch.cuda.CUDAGraph()
+                with contextlib.ExitStack() as stack:
+                    records = (stack.enter_context(telemetry.capture_records())
+                               if instrumented else None)
+                    stack.enter_context(torch.cuda.graph(graph))
+                    logits = self._decode(self.params, token, sess.cache)[0]
+                recorded.append((graph, logits, records))
+        for graph, _, _ in recorded:
+            lm.rewind(sess.cache, sess.length, self.cfg)
+            graph.replay()
+        return _DecodeGraphs(token, *recorded, held)
 
     @torch.inference_mode()
     def generate(

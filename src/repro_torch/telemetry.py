@@ -8,7 +8,8 @@ lists every name the program emits.
 There is no switch of its own. A span is on exactly while a
 ``torch.profiler`` session records (``torch.autograd.profiler``'s
 ``_is_profiler_enabled``) and the current stream is not being captured
-into a CUDA graph. Off, ``span`` returns one shared object that does
+into a CUDA graph (for spans inside a graph, see ``capture_records``
+below). Off, ``span`` returns one shared object that does
 nothing: one flag read, no ``record_function``, no clock read. On, it
 enters ``torch.profiler.record_function(name)``, so the range shows in the
 profiler's trace and in its ``export_chrome_trace``, and inside that range
@@ -25,6 +26,31 @@ work::
             sp.note(b=b, k=k)
         ...
 
+A counter (``count(name, value)``, one of ``COUNTER_NAMES``) is a record
+of no duration whose ``attrs["value"]`` is a number or a device tensor,
+read after the work; it is recorded under the same rule as a span, and its
+``parent`` is the span open around it. Code that has to compute a value
+asks ``on()`` first::
+
+    if telemetry.on():
+        telemetry.count("moe.expert_tokens", torch.bincount(idx, minlength=e))
+
+A CUDA graph replays no Python, so spans and counters inside one are
+recorded once, at its capture, under ``capture_records()``: there they are
+on whatever the profiler does, a device span's timing events are
+``external`` events that the graph records on every replay, and a counter's
+value is a tensor the graph rewrites. The ``GraphRecords`` it returns adds
+a copy of them to the session after each replay (``emit``, while a profiler
+records), with that replay's device times and values; a replayed span has
+no host time of its own::
+
+    with telemetry.capture_records() as records, torch.cuda.graph(graph):
+        out = step(x)
+    ...
+    with telemetry.span("lm.decode_step", device=True) as sp:
+        graph.replay()
+    records.emit(sp)
+
 Records are grouped by profiler session: a span that finds the profiler
 on, after an earlier span found it off, opens a new session.
 ``sessions()`` returns them, oldest first, each capped at ``MAX_RECORDS``
@@ -34,13 +60,15 @@ profiler's trace is the export.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["MAX_RECORDS", "SPAN_NAMES", "Record", "Session", "clear", "sessions", "span"]
+__all__ = ["MAX_RECORDS", "SPAN_NAMES", "COUNTER_NAMES", "GraphRecords", "Record", "Session",
+           "capture_records", "clear", "count", "on", "sessions", "span"]
 
 MAX_RECORDS = 200_000
 
@@ -64,6 +92,25 @@ SPAN_NAMES = {
     "bsr.recurrence": "BsrBackend: the adjoint (fused kernel or plain Block-ELL recurrence)",
     "bsr.unpermute": "BsrBackend: the output gathered back to the vertex order",
     "solver.iteration": "one step of a solver loop (method, index; device events)",
+    "lm.session_prefill": "ServeEngine: one session's document prefilled into the batch's cache "
+                          "(rows, tokens; device events)",
+    "lm.extend": "ServeEngine: every session extended through its cache by a turn's question "
+                 "(rows, tokens; device events)",
+    "lm.decode_step": "ServeEngine: one greedy decode step of the sessions' answers "
+                      "(rows, position; device events)",
+    "mla.attend": "latent attention's softmax and weighted sum (mode expanded or absorbed, "
+                  "rows, keys; device events)",
+    "moe.route": "the MoE router: scores, top-k and gates (tokens)",
+    "moe.experts": "the MoE dispatch, the experts' FFNs, the combine and the shared experts "
+                   "(tokens)",
+}
+
+COUNTER_NAMES = {
+    "moe.expert_tokens": "tokens routed to each expert in one MoE call (an (E,) tensor)",
+    "moe.dropped_tokens": "(token, slot) pairs one MoE call left without their expert's "
+                          "output: past a capacity, or outside the rows a dropless dispatch "
+                          "computed",
+    "lm.latent_cache_bytes": "bytes of the latent cache the serving sessions hold",
 }
 
 
@@ -72,13 +119,15 @@ class Record:
     the enclosing ``parent`` record (None at the top), ``attrs`` and the
     recording ``thread``."""
 
-    __slots__ = ("name", "start_ns", "end_ns", "parent", "attrs", "thread", "events")
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "attrs", "thread", "events",
+                 "replayed_ms")
 
     def __init__(self, name: str, attrs: dict):
         self.name, self.parent, self.attrs = name, None, attrs
         self.thread = threading.get_ident()
         self.start_ns = self.end_ns = 0
         self.events = None
+        self.replayed_ms = None
 
     @property
     def host_ms(self) -> float:
@@ -86,9 +135,10 @@ class Record:
 
     def device_ms(self) -> float | None:
         """Device milliseconds between the span's entry and exit events
-        (waits for the exit event); None for a span without events."""
+        (waits for the exit event); a replayed span's, read at its ``emit``;
+        None for a span without events."""
         if self.events is None:
-            return None
+            return self.replayed_ms
         start, stop = self.events
         stop.synchronize()
         return start.elapsed_time(stop)
@@ -181,9 +231,11 @@ class _Recorder:
             self._local.stack = []
             return self._local.stack
 
-    def open(self, name: str, device: bool, attrs: dict):
+    def _session(self) -> Session | None:
+        """The session a record goes into (a new one after the profiler was
+        seen off), or None while the stream captures a CUDA graph."""
         if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
-            return OFF
+            return None
         with self._lock:
             if self.off_seen:
                 self.sessions.append(Session())
@@ -191,23 +243,163 @@ class _Recorder:
             session = self.sessions[-1]
         if len(session.records) >= MAX_RECORDS:
             session.dropped += 1
+            return None
+        return session
+
+    def open(self, name: str, device: bool, attrs: dict):
+        session = self._session()
+        if session is None:
             return OFF
         record = Record(name, attrs)
         session.records.append(record)
         return _On(self, record, device and torch.cuda.is_initialized())
 
+    def count(self, name: str, value) -> None:
+        session = self._session()
+        if session is None:
+            return
+        record = Record(name, {"value": value})
+        stack = self.stack()
+        record.parent = stack[-1] if stack else None
+        record.start_ns = record.end_ns = time.time_ns()
+        session.records.append(record)
+
+    def adopt(self, record: Record) -> None:
+        session = self._session()
+        if session is not None:
+            session.records.append(record)
+
 
 _RECORDER = _Recorder()
+
+
+class _Captured:
+    """A span met while a graph is captured under ``capture_records``."""
+
+    __slots__ = ("graph", "record")
+
+    def __init__(self, graph: GraphRecords, record: Record):
+        self.graph, self.record = graph, record
+
+    def __bool__(self) -> bool:
+        return True
+
+    def note(self, **attrs) -> None:
+        self.record.attrs.update(attrs)
+
+    def __enter__(self):
+        self.graph.stack.append(self.record)
+        if self.record.events is not None:
+            self.record.events[0].record()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.record.events is not None:
+            self.record.events[1].record()
+        self.graph.stack.pop()
+        return False
+
+
+class GraphRecords:
+    """The spans and counters of one CUDA graph's capture, in the order met
+    (``records``), to be added to the session after each replay."""
+
+    def __init__(self):
+        self.records: list[Record] = []
+        self.stack: list[Record] = []
+
+    def _add(self, record: Record) -> Record:
+        record.parent = self.stack[-1] if self.stack else None
+        self.records.append(record)
+        return record
+
+    def open(self, name: str, device: bool, attrs: dict) -> _Captured:
+        record = self._add(Record(name, attrs))
+        if device:
+            record.events = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                                  for _ in range(2))
+        return _Captured(self, record)
+
+    def count(self, name: str, value) -> None:
+        self._add(Record(name, {"value": value}))
+
+    def emit(self, under) -> None:
+        """After a replay, while a profiler records: a copy of every record
+        into the session, with the replay's device times and counter values
+        (waits for the replay), the top ones under the span ``under`` (the
+        span the replay ran in; None for none). The next replay rewrites
+        what this one read, so call it between the two."""
+        if not on():
+            return
+        if any(r.events is not None for r in self.records):
+            torch.cuda.current_stream().synchronize()
+        top = under.record if under else None
+        now = time.time_ns()
+        copies: dict[int, Record] = {}
+        for r in self.records:
+            attrs = dict(r.attrs)
+            if isinstance(attrs.get("value"), torch.Tensor):
+                attrs["value"] = attrs["value"].clone()
+            c = Record(r.name, attrs)
+            c.parent = top if r.parent is None else copies[id(r.parent)]
+            c.start_ns = c.end_ns = now
+            if r.events is not None:
+                c.replayed_ms = r.events[0].elapsed_time(r.events[1])
+            copies[id(r)] = c
+            _RECORDER.adopt(c)
+
+
+_GRAPH: GraphRecords | None = None
+
+
+@contextlib.contextmanager
+def capture_records():
+    """Around a CUDA graph's capture: every span and counter met inside is
+    on, and is kept by the ``GraphRecords`` this yields (module
+    docstring). One capture at a time, on the thread that captures."""
+    global _GRAPH
+    if _GRAPH is not None:
+        raise RuntimeError("capture_records is already open")
+    _GRAPH = GraphRecords()
+    try:
+        yield _GRAPH
+    finally:
+        _GRAPH = None
 
 
 def span(name: str, *, device: bool = False, **attrs):
     """A context manager marking ``name`` (one of ``SPAN_NAMES``) while a
     profiler records; the shared no-op ``OFF`` otherwise. Both are truthy
     only when on, and take further attributes with ``note``."""
+    if _GRAPH is not None:
+        return _GRAPH.open(name, device, attrs)
     if not _profiler._is_profiler_enabled:
         _RECORDER.off_seen = True
         return OFF
     return _RECORDER.open(name, device, attrs)
+
+
+def on() -> bool:
+    """True while a profiler records and no CUDA graph is being captured,
+    or while one is captured under ``capture_records``: when a span or
+    counter would be recorded."""
+    if _GRAPH is not None:
+        return True
+    if not _profiler._is_profiler_enabled:
+        return False
+    return not (torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing())
+
+
+def count(name: str, value) -> None:
+    """Record counter ``name`` (one of ``COUNTER_NAMES``) with ``value``
+    while a profiler records; nothing otherwise."""
+    if _GRAPH is not None:
+        _GRAPH.count(name, value)
+        return
+    if not _profiler._is_profiler_enabled:
+        _RECORDER.off_seen = True
+        return
+    _RECORDER.count(name, value)
 
 
 def sessions() -> list[Session]:

@@ -233,3 +233,36 @@ def test_frame_host_s_keeps_its_meaning(filt):
             assert r1.host_s * 1e3 <= walk.host_ms <= r1.latency_s * 1e3
         else:
             assert walks == []
+
+
+def test_graph_records_are_added_after_each_replay():
+    """Spans and counters met under ``capture_records`` are kept, not put in
+    a session; each ``emit`` under a profiler adds a copy of them under the
+    span it is given, with the counter values as they are then (a graph
+    rewrites them in place on every replay)."""
+    value = torch.zeros(3, dtype=torch.int64)
+    with telemetry.capture_records() as records:
+        assert telemetry.on()
+        with telemetry.span("moe.experts", tokens=4):
+            telemetry.count("moe.dropped_tokens", value)
+        telemetry.count("moe.expert_tokens", value)
+    assert not telemetry.on() and telemetry.sessions() == []
+    assert [r.name for r in records.records] == ["moe.experts", "moe.dropped_tokens",
+                                                 "moe.expert_tokens"]
+    records.emit(None)  # the profiler is off: nothing
+    with _profiled():
+        for step in range(2):
+            value.fill_(step + 1)
+            with telemetry.span("lm.decode_step", position=step) as sp:
+                pass
+            records.emit(sp)
+    (session,) = telemetry.sessions()
+    steps = session.named("lm.decode_step")
+    assert len(steps) == 2 and len(session.records) == 8
+    for step, rec in enumerate(steps):
+        (experts, counts) = _children(session, rec)
+        assert experts.name == "moe.experts" and experts.attrs == {"tokens": 4}
+        (dropped,) = _children(session, experts)
+        assert counts.attrs["value"].tolist() == [step + 1] * 3
+        assert dropped.attrs["value"].tolist() == [step + 1] * 3
+        assert experts.device_ms() is None and experts.host_ms == 0.0
